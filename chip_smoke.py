@@ -8,20 +8,29 @@ $CUDA_HOME or /usr/local/cuda, and PyTorch built for CUDA. Phases, each
 printing one JSON line; any failure raises and exits nonzero:
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit;
-2. build   — nvcc builds the three kernels from tpuseg_torch/csrc (one
+2. build   — nvcc builds the five kernels from tpuseg_torch/csrc (one
              process each, in parallel) into build/kernels; ptxas's
              register, shared-memory and spill report;
 3. kernels — each kernel against its plain PyTorch version at the serving
-             path's shapes, and timed (CUDA events over CUDA-graph replays,
-             inputs rotated through more than 2x the 50 MB L2) beside the
-             plain version and a PyTorch library call;
+             and training paths' shapes, and timed (CUDA events over
+             CUDA-graph replays, inputs rotated through more than 2x the
+             50 MB L2) beside the plain version and, where one PyTorch call
+             computes the same function, that call;
 4. serve   — the full-width mobilenetv2_unet (10 classes, 256x128, batch 8,
              --model.use_pallas=true --model.up_subpixel=false) served
              through the port's Predictor on 360x640 frames, with the launch
              counters proving the kernels ran, against a plain-path Predictor
              holding the same seeded weights;
 5. head    — the model with upsample_head=False followed by the fused
-             upsample2x_argmax kernel, against the full model's argmax.
+             upsample2x_argmax kernel, against the full model's argmax;
+6. train   — the full-width mobilenetv2_unet trained through
+             ``tpuseg_torch.main`` with --train.loss=lovasz (256 bins, batch
+             8, 256x128, Adam 1.5e-4, augment on, synthetic scenes): the
+             loss falls, a val mIoU is computed, both Lovász kernels launch
+             once per step, a checkpoint round-trips; then steady step
+             times, the step's stages, and a 3-step A/B of the kernel loss
+             against one built on the plain versions, under deterministic
+             algorithms: gradients and parameters bit-equal.
 
 Then the kernels summary line, nvidia-smi's line, and, last, the result
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -33,10 +42,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -69,12 +80,25 @@ REPLACES = {
     "argmax_colorize": "tpuseg/ops/pallas_kernels.py:63",
     "upsample2x_argmax": "tpuseg/ops/pallas_kernels.py:165",
     "fused_upsample_concat_conv": "tpuseg/ops/pallas_kernels.py:314",
+    "lovasz_histograms": "tpuseg/ops/lovasz_pallas.py:124",
+    "lovasz_lookup": "tpuseg/ops/lovasz_pallas.py:170",
 }
 SOURCES = {
     "argmax_colorize": "tpuseg_torch/csrc/argmax_colorize.cu",
     "upsample2x_argmax": "tpuseg_torch/csrc/upsample2x_argmax.cu",
     "fused_upsample_concat_conv": "tpuseg_torch/csrc/upconcat_conv.cu",
+    "lovasz_histograms": "tpuseg_torch/csrc/lovasz_histograms.cu",
+    "lovasz_lookup": "tpuseg_torch/csrc/lovasz_lookup.cu",
 }
+# the Lovász planes of one training batch: [C, B*H*W] = [10, 262,144]
+LOVASZ_SHAPE = (CLASSES, BATCH * MODEL_HW[0] * MODEL_HW[1])
+# error-sum histogram: f32 sums of up to 2.6e5 errors per bin, taken in
+# another order (shared-memory atomics vs scatter_add_), relative per bin
+ERRSUM_RTOL = 1e-4
+# the loss value: sum over bins of error-sum x coefficient, |coef| <= 1,
+# so the error-sum tolerance carries over to about 1e-4 of a value <= 1
+LOVASZ_VALUE_ATOL = 1e-4
+TRAIN_STEPS, VAL_SPLIT, TIMED_STEPS, AB_STEPS = 80, 0.0625, 30, 3
 # decoder up blocks at batch 8, 256x128 input: (skip [B,2H,2W,Cs], x [B,H,W,Cx], Cout)
 UPCONCAT_SHAPES = {
     "up1": ((BATCH, 8, 16, 64), (BATCH, 4, 8, 1280), 256),
@@ -273,8 +297,91 @@ def phase_kernels():
         bound_by="bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations",
         library="F.conv2d(cat([skip, F.interpolate(x)])) (cuDNN, TF32 off)",
         per_call=per_shape, note="ms are sums over the four up blocks of one forward")
+    out.update(lovasz_rows())
     emit({"phase": "kernels", **out})
     return out
+
+
+def lovasz_planes(seed: int):
+    """(errors, fg), each f32 [C, P] contiguous, as one training batch gives
+    them: |onehot - softmax| of seeded logits against seeded labels, with
+    257 pixels at e = 1.0 exactly on their label's class (and 0 on the
+    others) and 43 more at e = 0 on every class."""
+    c, p = LOVASZ_SHAPE
+    g = make_generator(seed, "cuda")
+    logits = torch.randn((p, c), generator=g, device="cuda") * 2.0
+    labels = torch.randint(0, c, (p,), generator=g, device="cuda")
+    fg = F.one_hot(labels, c).to(torch.float32)
+    errors = (fg - logits.softmax(dim=-1)).abs()
+    errors[:257] = fg[:257]
+    errors[257:300] = 0.0
+    return errors.t().contiguous(), fg.t().contiguous()
+
+
+def lovasz_rows():
+    """lovasz_histograms and lovasz_lookup at [10, 262,144] against their
+    plain versions: counts, fg sums and w bit-equal, error sums within
+    ERRSUM_RTOL, the autograd op's value within LOVASZ_VALUE_ATOL and its
+    gradient bit-equal; then timed."""
+    from tpuseg_torch.ops import lovasz
+
+    c, p = LOVASZ_SHAPE
+    e, fg = lovasz_planes(400)
+    hk = lovasz.lovasz_histograms(e, fg)
+    hp = lovasz.lovasz_histograms_plain(e, fg)
+    h64 = lovasz.lovasz_histograms_plain(e.double(), fg.double())
+    torch.cuda.synchronize()
+    if not (torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1])):
+        raise AssertionError("lovasz_histograms: counts or fg sums differ from the plain version")
+    s_err = (hk[2] - hp[2]).abs()
+    if bool((s_err > ERRSUM_RTOL * h64[2].abs() + 1e-7).any()):
+        raise AssertionError(f"lovasz_histograms: error sums off by {float(s_err.max())}")
+
+    def rel64(h):
+        return float(((h.double() - h64[2]).abs() / h64[2].abs().clamp(min=1e-30)).max())
+
+    coef, _ = lovasz.coefficients(*hp)
+    wk = lovasz.lovasz_lookup(e, coef)
+    wp = lovasz.lovasz_lookup_plain(e, coef)
+    torch.cuda.synchronize()
+    if not torch.equal(wk, wp):
+        raise AssertionError("lovasz_lookup disagrees with its plain version")
+
+    ek, ep = e.clone().requires_grad_(True), e.clone().requires_grad_(True)
+    vk, vp = lovasz.lovasz_binned_kernel(ek, fg), lovasz.lovasz_binned_plain(ep, fg)
+    (vk + vp).backward()
+    torch.cuda.synchronize()
+    value_err = abs(float(vk.detach()) - float(vp.detach()))
+    if value_err > LOVASZ_VALUE_ATOL or not torch.equal(ek.grad, ep.grad):
+        raise AssertionError(f"Lovász op: value off by {value_err}, or gradients differ")
+
+    plane = c * p * 4
+    hist_ins = copies(lambda i: lovasz_planes(500 + i), 2 * plane)
+    look_ins = copies(lambda i: (lovasz_planes(600 + i)[0], coef), plane)
+    rows = {
+        "lovasz_histograms": dict(
+            max_abs_err=float(s_err.max()), counts_fg_bit_equal=True,
+            errsum_max_rel_vs_f64=rel64(hk[2]), plain_errsum_max_rel_vs_f64=rel64(hp[2]),
+            value=float(vk.detach()), plain_value=float(vp.detach()), value_abs_err=value_err,
+            ms=device_ms(lovasz.lovasz_histograms, hist_ins),
+            plain_ms=device_ms(lovasz.lovasz_histograms_plain, hist_ins),
+            library_ms=None, library="none: no one PyTorch call gives the three histograms",
+            shape=list(LOVASZ_SHAPE)),
+        "lovasz_lookup": dict(
+            max_abs_err=float((wk - wp).abs().max()), w_bit_equal=True,
+            grad_bit_equal=True,
+            ms=device_ms(lovasz.lovasz_lookup, look_ins),
+            plain_ms=device_ms(lovasz.lovasz_lookup_plain, look_ins),
+            library_ms=None, library="none: no one PyTorch call bins and gathers",
+            shape=list(LOVASZ_SHAPE)),
+    }
+    # bytes: each input read once, each output written once; operations:
+    # 3 adds per pixel (histograms), one select per pixel (lookup)
+    rows["lovasz_histograms"]["bound_ms"], rows["lovasz_histograms"]["bound_by"] = bound_ms(
+        2 * plane + 3 * c * 256 * 4, 3 * c * p)
+    rows["lovasz_lookup"]["bound_ms"], rows["lovasz_lookup"]["bound_by"] = bound_ms(
+        2 * plane + c * 256 * 4, c * p)
+    return rows
 
 
 def seeded_weights(cfg, path: Path) -> None:
@@ -298,7 +405,8 @@ def phase_serve(pth: Path, name: str):
     outs = [pred(f) for f in frames]
     counts = dict(kernels.launches)
     want = {"fused_upsample_concat_conv": 4 * SERVE_BATCHES,
-            "argmax_colorize": SERVE_BATCHES, "upsample2x_argmax": 0}
+            "argmax_colorize": SERVE_BATCHES, "upsample2x_argmax": 0,
+            "lovasz_histograms": 0, "lovasz_lookup": 0}
     if counts != want:
         raise AssertionError(f"serve launches {counts}, expected {want}")
 
@@ -372,7 +480,8 @@ def phase_head(pred, frames):
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
     model.upsample_head = True
-    want = {"fused_upsample_concat_conv": 4, "argmax_colorize": 0, "upsample2x_argmax": 1}
+    want = {"fused_upsample_concat_conv": 4, "argmax_colorize": 0, "upsample2x_argmax": 1,
+            "lovasz_histograms": 0, "lovasz_lookup": 0}
     if counts != want:
         raise AssertionError(f"head launches {counts}, expected {want}")
     full = model(x).permute(0, 2, 3, 1)
@@ -387,11 +496,176 @@ def phase_head(pred, frames):
     return counts
 
 
+def phase_train(perf) -> dict:
+    """The slice's training configuration through tpuseg_torch.main."""
+    import copy
+
+    from tpuseg_torch.main import main as train_main
+    from tpuseg_torch.ops.lovasz import lovasz_binned_plain
+    from tpuseg_torch.train.loss import lovasz_errors, make_loss_fn
+    from tpuseg_torch.train.train_step import create_optimizer, make_train_step
+    from tpuseg_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as ck:
+        argv = ["--train.loss=lovasz", "--train.epochs=1",
+                f"--train.steps_per_epoch={TRAIN_STEPS}", f"--data.val_split={VAL_SPLIT}",
+                f"--train.checkpoint_dir={ck}", "--train.log_every=0"]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr = train_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+
+        cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
+        want = {"argmax_colorize": 0, "upsample2x_argmax": 0, "fused_upsample_concat_conv": 0,
+                "lovasz_histograms": TRAIN_STEPS, "lovasz_lookup": TRAIN_STEPS}
+        if counts != want or tr.step != TRAIN_STEPS:
+            raise AssertionError(f"train launches {counts} after {tr.step} steps, want {want}")
+        slice_cfg = dict(name="mobilenetv2_unet", width_mult=1.0, num_classes=10,
+                         up_subpixel=True, compute_dtype="float32", batch=8, hw=(128, 256),
+                         lr=1.5e-4, optimizer="adam", loss="lovasz", bins=256, augment=True,
+                         sources=("synthetic",))
+        got_cfg = dict(name=cfg.model.name, width_mult=cfg.model.width_mult,
+                       num_classes=cfg.model.num_classes, up_subpixel=cfg.model.up_subpixel,
+                       compute_dtype=cfg.model.compute_dtype, batch=cfg.train.batch_size,
+                       hw=(cfg.data.height, cfg.data.width), lr=cfg.train.lr,
+                       optimizer=cfg.train.optimizer, loss=cfg.train.loss,
+                       bins=cfg.train.lovasz_bins, augment=cfg.data.augment,
+                       sources=tuple(src.kind for src in cfg.data.sources))
+        if got_cfg != slice_cfg:
+            raise AssertionError(f"the train phase ran {got_cfg}, not the slice's {slice_cfg}")
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train losses {losses}")
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if not last < first:
+            raise AssertionError(f"loss did not fall: first 5 {first}, last 5 {last}")
+        if not math.isfinite(rec.get("val_miou", float("nan"))):
+            raise AssertionError(f"no val mIoU in {rec}")
+        with open(Path(ck) / "history.jsonl") as f:
+            if len(f.readlines()) != 1:
+                raise AssertionError("history.jsonl has not one epoch line")
+
+        resumed = Trainer(cfg)
+        if not resumed.maybe_resume() or resumed.step != tr.step or resumed.epoch != 1:
+            raise AssertionError(f"resume gave step {resumed.step}, want {tr.step}")
+        sd, rsd = tr.model.state_dict(), resumed.model.state_dict()
+        if any(not torch.equal(sd[k], rsd[k]) for k in sd) or \
+                resumed.pipeline.state() != tr.pipeline.state():
+            raise AssertionError("the resumed weights or sampler differ from the saved run")
+        saved = sorted(p.name for p in Path(ck).glob("step_*.pt"))
+        del resumed
+
+    # steady steps: batch wait + fused augment/step, synchronized, host clock
+    lat = []
+    gen = tr.pipeline.train_batches(TIMED_STEPS)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(gen, None)
+        if batch is None:
+            break
+        tr.train_step(*batch, tr.aug_generator)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    steady = lat[3:]
+
+    # the step's stages, synchronized apart
+    step = make_train_step(tr.model, tr.optimizer, loss_fn=tr._build_loss())
+    st = {"host_batch": [], "upload": [], "augment": [], "fwd_loss_bwd_adam": []}
+    pipe = tr.pipeline
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        host = pipe._assemble(pipe.sampler.sample(cfg.train.batch_size))
+        t1 = time.perf_counter()
+        dev = pipe._put(host)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        x, y = tr.augment(*dev, tr.aug_generator)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, dt in zip(st, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            st[k].append(dt * 1e3)
+    stages = {k: float(np.median(v[3:])) for k, v in st.items()}
+    p50 = float(np.median(steady)) * 1e3
+    kernel_ms = perf["lovasz_histograms"]["ms"] + perf["lovasz_lookup"]["ms"]
+
+    # A/B: AB_STEPS steps from one state on the same batches, with the
+    # kernel loss, with a loss built on the plain versions, and with that one
+    # again (the noise floor of the rest of the step). Deterministic
+    # algorithms make the rest of the step repeat bit for bit, and w is
+    # bit-equal on both routes, so the first step's gradients and the final
+    # parameters must be equal; only the loss values differ (error sums).
+    start = copy.deepcopy(tr.model.state_dict())
+    batches = [tr.augment(*pipe._put(pipe._assemble(pipe.sampler.sample(
+        cfg.train.batch_size))), tr.aug_generator) for _ in range(AB_STEPS)]
+
+    def plain_loss(logits, targets):
+        return lovasz_binned_plain(*lovasz_errors(logits, targets))
+
+    def ab_run(loss_fn):
+        model = build_model(cfg.model).to("cuda", memory_format=torch.channels_last)
+        model.load_state_dict(start)
+        ab_step = make_train_step(model, create_optimizer(model, lr=cfg.train.lr),
+                                  loss_fn=loss_fn)
+        losses, grads = [], None
+        for x, y in batches:
+            losses.append(float(ab_step(x, y)["loss"]))
+            if grads is None:
+                grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        return losses, grads, dict(model.named_parameters())
+
+    def max_diff(a, b):
+        return max(float((a[k] - b[k]).detach().abs().max()) for k in a)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        runs = {label: ab_run(fn) for label, fn in (
+            ("kernels", make_loss_fn("lovasz")), ("plain", plain_loss),
+            ("plain_again", plain_loss))}
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    nondeterministic_ops = sorted({str(w.message).split(" ")[0] for w in caught
+                                   if "deterministic" in str(w.message)})
+    (lk, gk, pk), (lp, gp, pp), (_, ga, pa) = runs.values()
+    loss_diff = max(abs(a - b) for a, b in zip(lk, lp))
+    ab = {"steps": AB_STEPS, "max_loss_diff": loss_diff,
+          "max_grad_diff": max_diff(gk, gp), "max_param_diff": max_diff(pk, pp),
+          "floor_grad_diff": max_diff(ga, gp), "floor_param_diff": max_diff(pa, pp),
+          "nondeterministic_ops": nondeterministic_ops,
+          "kernel_losses": lk, "plain_losses": lp}
+    if loss_diff > LOVASZ_VALUE_ATOL or any(
+            ab[k] != 0.0 for k in ("max_grad_diff", "max_param_diff",
+                                   "floor_grad_diff", "floor_param_diff")):
+        raise AssertionError(f"A/B: {ab}")
+
+    out = {"phase": "train", "launches": counts, "steps": tr.step, "wall_s": wall,
+           "loss_first5": first, "loss_last5": last, "losses_every10": losses[::10],
+           "val_miou": rec["val_miou"], "val_pixel_acc": rec["val_pixel_acc"],
+           "epoch_imgs_per_s": rec["imgs_per_sec"], "checkpoints": saved,
+           "steady_imgs_per_s": cfg.train.batch_size * len(steady) / sum(steady),
+           "p50_step_ms": p50,
+           "stages_ms": stages,
+           # an estimate: the kernels' isolated times (cold L2, CUDA graph)
+           # over the host-clock p50 step, not a time measured in the step
+           "lovasz_kernels_isolated_ms": kernel_ms,
+           "lovasz_kernels_isolated_ms_over_p50_step": kernel_ms / p50,
+           "ab": ab}
+    emit(out)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    # before cuBLAS starts: the train phase's A/B runs deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     info = phase_device()
@@ -402,9 +676,12 @@ def main() -> int:
         seeded_weights(load_config([]), pth)
         pred, frames, serve_counts = phase_serve(pth, info["name"])
     head_counts = phase_head(pred, frames)
+    train_counts = phase_train(perf)
     launches = {"argmax_colorize": serve_counts["argmax_colorize"],
                 "upsample2x_argmax": head_counts["upsample2x_argmax"],
-                "fused_upsample_concat_conv": serve_counts["fused_upsample_concat_conv"]}
+                "fused_upsample_concat_conv": serve_counts["fused_upsample_concat_conv"],
+                "lovasz_histograms": train_counts["lovasz_histograms"],
+                "lovasz_lookup": train_counts["lovasz_lookup"]}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": perf[k]["max_abs_err"],

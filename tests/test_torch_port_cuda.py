@@ -1,7 +1,7 @@
 """Card-only tests of the port's CUDA kernels against their plain versions.
 
-Each kernel runs at the serving path's shapes and at ragged ones, on the
-card, beside its plain PyTorch version on the same inputs. Without a CUDA
+Each kernel runs at the serving and training paths' shapes and at ragged
+ones, on the card, beside its plain PyTorch version on the same inputs. Without a CUDA
 card every test here skips (the decision is taken inside the ``card``
 fixture, so every worker collects the same tests). On the machine with the
 card, whose Python has no JAX (which ``tests/conftest.py`` imports):
@@ -108,3 +108,68 @@ def test_pallas_model_path_launches_and_matches_plain(card):
         model.use_pallas = False
         plain = model(x)
     torch.testing.assert_close(fused, plain, rtol=1e-3, atol=1e-4)
+
+
+def _lovasz_planes(c, p, seed):
+    """errors = |onehot - softmax| [C, P] with a few errors exactly 1.0 and 0."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(p, c) * 2
+    probs = np.exp(logits - logits.max(1, keepdims=True))
+    probs /= probs.sum(1, keepdims=True)
+    fg = np.eye(c)[rng.randint(0, c, p)]
+    errors = np.abs(fg - probs)
+    errors[: min(p, 5)] = fg[: min(p, 5)]
+    errors[5:9] = 0.0
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a.T, np.float32)).cuda()
+    return as_t(errors), as_t(fg)
+
+
+@pytest.mark.parametrize("c,p", [(10, 262144), (3, 1001), (4, 7), (2, 1)])
+def test_lovasz_kernels_match_plain(card, c, p):
+    from tpuseg_torch.ops import lovasz
+
+    e, fg = _lovasz_planes(c, p, 12)
+    before = dict(kernels.launches)
+    hk = lovasz.lovasz_histograms(e, fg)
+    hp = lovasz.lovasz_histograms_plain(e, fg)
+    assert torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1])
+    # the error sum is summed in another order (shared-memory atomics)
+    torch.testing.assert_close(hk[2], hp[2], rtol=1e-4, atol=1e-6)
+    coef, _ = lovasz.coefficients(*hp)
+    assert torch.equal(lovasz.lovasz_lookup(e, coef), lovasz.lovasz_lookup_plain(e, coef))
+    ek, ep = e.clone().requires_grad_(True), e.clone().requires_grad_(True)
+    vk, vp = lovasz.lovasz_binned_kernel(ek, fg), lovasz.lovasz_binned_plain(ep, fg)
+    (vk + vp).backward()
+    assert abs(float(vk.detach()) - float(vp.detach())) <= 1e-4
+    assert torch.equal(ek.grad, ep.grad)
+    assert kernels.launches["lovasz_histograms"] == before["lovasz_histograms"] + 2
+    assert kernels.launches["lovasz_lookup"] == before["lovasz_lookup"] + 2
+
+
+def test_lovasz_histogram_counts_stay_exact_past_2_24_pixels(card):
+    """A class of 2**24 + 3 pixels: the kernel's counts and fg sums are the
+    exact totals rounded once to float32, as the plain version's are (a
+    float32 sum of ones would stop at 2**24)."""
+    from tpuseg_torch.ops import lovasz
+
+    p = (1 << 24) + 3
+    e = torch.zeros((2, p), device="cuda")
+    e[1, ::2] = 0.5
+    fg = torch.ones_like(e)
+    hk = lovasz.lovasz_histograms(e, fg)
+    hp = lovasz.lovasz_histograms_plain(e, fg)
+    assert torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1])
+    assert float(hk[0][0, 0]) == float(np.float32(p)) == float(hk[1][0, 0])
+    assert float(hk[0][1, 128]) == float(np.float32((p + 1) // 2))
+
+
+def test_lovasz_wrappers_reject_what_the_kernels_do_not_take(card):
+    from tpuseg_torch.ops import lovasz
+
+    e, fg = _lovasz_planes(3, 64, 13)
+    with pytest.raises(TypeError):
+        lovasz.lovasz_histograms(e.double(), fg.double())
+    with pytest.raises(ValueError):
+        lovasz.lovasz_lookup(e.t(), torch.zeros(64, 256, device="cuda"))
+    with pytest.raises(ValueError):
+        lovasz.lovasz_histograms(e[:, ::2], fg[:, ::2])

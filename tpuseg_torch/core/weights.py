@@ -57,7 +57,7 @@ def init_weights(model: nn.Module, generator: torch.Generator,
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
 
 
 def _oihw(kernel) -> torch.Tensor:
@@ -83,9 +83,11 @@ def _convbn(out: dict, conv: str, bn: str, p: Mapping, s: Mapping) -> None:
     _bn(out, bn, p["bn"], s["bn"])
 
 
-def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(variables: Mapping,
+                         dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The JAX package's ``{"params", "batch_stats"}`` tree of a
-    MobileNetV2UNet (numpy or JAX arrays) -> the port's state_dict."""
+    MobileNetV2UNet (numpy or JAX arrays) -> the port's state_dict, its
+    floating tensors in ``dtype`` (float64 keeps an f64 tree exact)."""
     if "quant" in variables:
         raise NotImplementedError(
             "int8 'quant' variables are not ported yet (ROADMAP.md, queue "
@@ -118,7 +120,7 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     p, s = params["outc"], stats["outc"]
     _convbn(out, "outc.conv.0", "outc.conv.1", p["conv1"], s["conv1"])
     _conv(out, "outc.conv.3", p["conv2"])
-    return out
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in out.items()}
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:

@@ -1,1 +1,1 @@
-"""The parts of the data layer that serving needs: palettes and normalize."""
+"""The data layer: sources, the weighted mix, the input pipeline, augment."""

@@ -14,7 +14,10 @@ directly:
   ``0,1,3``).
 
 BatchNorm eps is 1e-5 and momentum 0.1 (torch's defaults, the same
-statistics as the JAX package's flax decay 0.9).
+statistics as the JAX package's flax decay 0.9). Every BatchNorm is
+``BatchNorm2d`` below, which follows flax in train mode: the running
+variance takes the biased batch variance, where ``nn.BatchNorm2d`` takes
+the unbiased n/(n-1) one.
 
 ``upconcat_conv`` keeps the JAX routing of an up block's first conv
 (``ConvBNAct.upconcat_impl`` there): ``"subpixel"`` in train and eval;
@@ -28,11 +31,41 @@ from typing import Optional, Tuple, Type
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from tpuseg_torch.ops.resize import upsample2x_bilinear
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode running statistics.
+
+    Train mode normalizes with the batch mean and biased variance, as
+    torch does, and moves ``running_mean``/``running_var`` by ``momentum``
+    towards the batch mean and the *biased* batch variance, as flax's
+    ``nn.BatchNorm`` does (torch moves the variance towards the unbiased
+    one). Eval mode is ``nn.BatchNorm2d``'s, unchanged; so is the
+    state_dict.
+
+    The batch statistics are computed once, by ``F.batch_norm``, which
+    also moves the running buffers; the running variance's move is then
+    scaled by (n-1)/n, from the unbiased variance to the biased one."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - self.momentum)
+            moved = self.running_var.clone()    # the backward keeps it: not edited after
+            self.num_batches_tracked.add_(1)
+        y = F.batch_norm(x, self.running_mean, moved, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.copy_((moved - kept) * ((n - 1) / n) + kept)
+        return y
 
 
 def nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -65,7 +98,7 @@ class ConvBNAct(nn.Sequential):
         layers = [
             nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
                       groups=groups, bias=bias),
-            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
         ]
         if act is not None:
             layers.append(act())
@@ -106,10 +139,10 @@ class DoubleConv(nn.Module):
         super().__init__()
         self.conv = nn.Sequential(
             nn.Conv2d(cin, cout, 3, padding=1),
-            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU(),
             nn.Conv2d(cout, cout, 3, padding=1),
-            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU(),
         )
 
@@ -151,7 +184,7 @@ class OutConv(nn.Module):
         half = cin // 2
         self.conv = nn.Sequential(
             nn.Conv2d(cin, half, 1),
-            nn.BatchNorm2d(half, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(half, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU(),
             nn.Conv2d(half, classes, 1),
         )

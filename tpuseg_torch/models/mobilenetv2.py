@@ -20,7 +20,7 @@ from typing import List, Tuple
 import torch
 import torch.nn as nn
 
-from tpuseg_torch.models.blocks import BN_EPS, BN_MOMENTUM, ConvBNAct
+from tpuseg_torch.models.blocks import BN_EPS, BN_MOMENTUM, BatchNorm2d, ConvBNAct
 
 # (expand_ratio t, out_channels c, repeats n, first_stride s)
 INVERTED_RESIDUAL_SETTINGS: Tuple[Tuple[int, int, int, int], ...] = (
@@ -58,7 +58,7 @@ class InvertedResidual(nn.Module):
         layers += [
             ConvBNAct(hidden, hidden, 3, stride, groups=hidden),
             nn.Conv2d(hidden, cout, 1, bias=False),
-            nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
+            BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
         ]
         self.conv = nn.Sequential(*layers)
 

@@ -15,7 +15,8 @@ memory format the logits' NHWC view is contiguous.
 ``use_pallas``, ``up_subpixel``, ``upsample_head`` and ``head_fp32`` are
 plain attributes read at every call: they change the path, never the
 state_dict. ``head_fp32`` has no effect while compute is fp32 (the only
-compute dtype this slice runs).
+compute dtype the port runs; float64, which the parity tests use, stays
+float64 as in the JAX package).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ class MobileNetV2UNet(nn.Module):
         y = self.up2(y, x3, **flags)
         y = self.up3(y, x2, **flags)
         y = self.up4(y, x1, **flags)
-        y = self.outc(y).to(torch.float32)
+        y = self.outc(y)
+        y = y.to(torch.promote_types(y.dtype, torch.float32))
         if not self.upsample_head:
             return y
         # final x2, align_corners=True, on the NHWC view

@@ -37,6 +37,8 @@ launches: Dict[str, int] = {
     "argmax_colorize": 0,
     "upsample2x_argmax": 0,
     "fused_upsample_concat_conv": 0,
+    "lovasz_histograms": 0,     # tpuseg_torch/ops/lovasz.py
+    "lovasz_lookup": 0,
 }
 
 
@@ -52,6 +54,8 @@ _SIGNATURES = {
     "upsample2x_argmax": ("tpuseg_upsample2x_argmax", [_P, _P, _I, _I, _I, _I, _P]),
     "upconcat_conv": ("tpuseg_upconcat_conv",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "lovasz_histograms": ("tpuseg_lovasz_histograms", [_P, _P, _P, _P, _I, _LL, _I, _P]),
+    "lovasz_lookup": ("tpuseg_lovasz_lookup", [_P, _P, _P, _I, _LL, _I, _P]),
 }
 
 

@@ -1,0 +1,185 @@
+"""The sort-free Lovász-softmax loss's two CUDA kernels, their plain
+versions, and the autograd op built on them.
+
+The port of ``tpuseg/ops/lovasz_pallas.py``:
+
+==================  ===========================  ========================
+wrapper             CUDA source (tpuseg_torch/)  plain PyTorch version
+==================  ===========================  ========================
+lovasz_histograms   csrc/lovasz_histograms.cu    lovasz_histograms_plain
+lovasz_lookup       csrc/lovasz_lookup.cu        lovasz_lookup_plain
+==================  ===========================  ========================
+
+``lovasz_binned_kernel(errors, fg)`` is ``lovasz_binned_pallas``: the
+histograms give per-bin Lovász coefficients (``coefficients``, plain
+tensor ops on [C, 256]) and the loss value; the lookup gives each pixel's
+coefficient w, which is the gradient d loss / d errors.
+
+The binning is the TPU kernel's, on both routes: a pixel's bin is
+``clip(trunc(e * 256), 0, 255)``, so e = 1.0 falls in bin 255, and a
+pixel with e < 0 enters no bin. (The JAX package's XLA scan,
+``tpuseg/train/loss.py::_binned_lovasz``, gives e = 1.0 a level of its
+own; the two agree wherever no error is exactly 1.0.)
+
+Dispatch goes by the tensor's device, as in ``ops/kernels.py``: a CPU
+tensor runs the plain version; a CUDA tensor launches the kernel or
+raises. Each launch adds one to ``kernels.launches[<wrapper name>]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpuseg_torch.ops.kernels import _launch, _on_cuda, _require_f32_contiguous, launches
+
+NB = 256
+_THREADS = 256
+# a histogram block's float partials of 0s and 1s are exact below 2**24 pixels
+_BLOCK_PIXELS = 1 << 23
+
+
+def _check_plane(name: str, t: torch.Tensor) -> None:
+    if t.ndim != 2:
+        raise ValueError(f"{name} must be [C, P], got {tuple(t.shape)}")
+
+
+def _flat_bins(errors: torch.Tensor) -> torch.Tensor:
+    """int64 index c * 256 + bin of each pixel into the flattened [C, 256]
+    histograms, and C * 256 (one slot past them) where e < 0. Fixed shapes
+    and no host sync, so the plain versions can be captured in a CUDA graph."""
+    c = errors.shape[0]
+    b = torch.clamp(errors * NB, max=NB - 1).to(torch.int64).clamp_(min=0)
+    idx = b + NB * torch.arange(c, device=errors.device)[:, None]
+    return torch.where(errors >= 0, idx, torch.full_like(idx, c * NB))
+
+
+# ---------------------------------------------------------------------------
+# histograms
+
+
+def lovasz_histograms_plain(errors: torch.Tensor, fg: torch.Tensor):
+    """Plain version: (count, fg-sum, error-sum) histograms, each [C, 256].
+    Summed in float64 and rounded once to the input's type, so counts and
+    fg sums are the exact totals rounded, at any P (a float32 sum of ones
+    stops at 2**24)."""
+    c = errors.shape[0]
+    idx = _flat_bins(errors).reshape(1, -1).expand(3, -1)
+    vals = torch.stack([torch.ones_like(errors), fg, errors]).reshape(3, -1)
+    out = torch.zeros((3, c * NB + 1), dtype=torch.float64, device=errors.device)
+    out.scatter_add_(1, idx, vals.to(torch.float64))
+    h = out[:, : c * NB].view(3, c, NB).to(errors.dtype)
+    return h[0], h[1], h[2]
+
+
+def lovasz_histograms(errors: torch.Tensor, fg: torch.Tensor):
+    """Per class, per bin: pixel count, fg sum and error sum.
+
+    errors, fg [C, P] -> three [C, 256] tensors. On a CUDA tensor the
+    kernel runs in two passes (per-block partials in shared memory, then a
+    fixed-order reduction in double); counts and fg sums are the exact
+    totals rounded once, as the plain version's; the error sum is summed in
+    another order than the plain version's."""
+    _check_plane("errors", errors)
+    if fg.shape != errors.shape:
+        raise ValueError(f"fg {tuple(fg.shape)} and errors {tuple(errors.shape)} differ")
+    if not _on_cuda(errors, fg):
+        return lovasz_histograms_plain(errors, fg)
+    _require_f32_contiguous(errors=errors, fg=fg)
+    c, p = errors.shape
+    nblk = max(1, min(256, -(-p // (_THREADS * 32))), -(-p // _BLOCK_PIXELS))
+    partial = torch.empty((c, nblk, 3, NB), dtype=torch.float32, device=errors.device)
+    hist = torch.empty((c, 3, NB), dtype=torch.float32, device=errors.device)
+    _launch("lovasz_histograms", errors.device, errors.data_ptr(), fg.data_ptr(),
+            partial.data_ptr(), hist.data_ptr(), c, p, nblk)
+    launches["lovasz_histograms"] += 1
+    return hist[:, 0], hist[:, 1], hist[:, 2]
+
+
+# ---------------------------------------------------------------------------
+# coefficients (plain tensor ops on [C, 256], shared by both routes)
+
+
+def coefficients(h_n: torch.Tensor, h_f: torch.Tensor, h_s: torch.Tensor):
+    """Per-bin coefficients coef[c, b] = delta-Jaccard / bin count, scaled by
+    the mean over present classes, and the loss value from the error-sum
+    histogram. The arithmetic of ``lovasz_pallas._coefficients``."""
+    n_cum = torch.flip(torch.cumsum(torch.flip(h_n, [1]), 1), [1])
+    f_cum = torch.flip(torch.cumsum(torch.flip(h_f, [1]), 1), [1])
+    gts = f_cum[:, :1]
+    jac = 1.0 - (gts - f_cum) / torch.clamp(gts + n_cum - f_cum, min=1.0)
+    jac_next = torch.cat([jac[:, 1:], torch.zeros_like(jac[:, :1])], dim=1)
+    delta = jac - jac_next
+    present = (gts[:, 0] > 0).to(jac.dtype)
+    scale = present / torch.clamp(present.sum(), min=1.0)
+    per_bin = delta / torch.clamp(h_n, min=1.0) * scale[:, None]
+    return per_bin, torch.sum(h_s * per_bin)
+
+
+# ---------------------------------------------------------------------------
+# lookup
+
+
+def lovasz_lookup_plain(errors: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """Plain version: w[c, p] = coef[c, bin(e)], 0 where e < 0."""
+    flat = torch.cat([coef.reshape(-1), coef.new_zeros(1)])
+    return flat[_flat_bins(errors)]
+
+
+def lovasz_lookup(errors: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """errors [C, P], coef [C, 256] -> w [C, P] (the per-pixel gradient)."""
+    _check_plane("errors", errors)
+    if tuple(coef.shape) != (errors.shape[0], NB):
+        raise ValueError(f"coef must be [{errors.shape[0]}, {NB}], got {tuple(coef.shape)}")
+    if not _on_cuda(errors, coef):
+        return lovasz_lookup_plain(errors, coef)
+    _require_f32_contiguous(errors=errors, coef=coef)
+    c, p = errors.shape
+    nblk = max(1, min(1024, -(-p // (_THREADS * 8))))
+    w = torch.empty_like(errors)
+    _launch("lovasz_lookup", errors.device, errors.data_ptr(), coef.data_ptr(),
+            w.data_ptr(), c, p, nblk)
+    launches["lovasz_lookup"] += 1
+    return w
+
+
+# ---------------------------------------------------------------------------
+# the loss op
+
+
+def _forward(errors, fg, histograms, lookup):
+    coef, value = coefficients(*histograms(errors, fg))
+    return value, lookup(errors, coef)
+
+
+class _LovaszBinned(torch.autograd.Function):
+    """Value from the histograms; d value / d errors = w; fg is constant."""
+
+    @staticmethod
+    def forward(ctx, errors, fg, histograms, lookup):
+        value, w = _forward(errors, fg, histograms, lookup)
+        ctx.save_for_backward(w)
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return g * w, None, None, None
+
+
+def lovasz_binned_kernel(errors: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+    """Binned Lovász-softmax from [C, P] errors and foreground: a scalar,
+    differentiable in ``errors`` (the port of ``lovasz_binned_pallas``)."""
+    return _LovaszBinned.apply(errors, fg, lovasz_histograms, lovasz_lookup)
+
+
+def lovasz_binned_plain(errors: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
+    """The same op built on the plain versions, on any device (for
+    comparing the kernels with their plain versions on the card)."""
+    return _LovaszBinned.apply(errors, fg, lovasz_histograms_plain, lovasz_lookup_plain)
+
+
+def make_sharded_lovasz(*args, **kwargs):
+    """The multi-device Lovász of ``lovasz_pallas.make_sharded_lovasz``."""
+    raise NotImplementedError(
+        "the sharded Lovász loss is not ported yet (ROADMAP.md A13, multi-GPU)"
+    )

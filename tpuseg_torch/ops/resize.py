@@ -63,10 +63,13 @@ def _bilinear_taps(n_in: int, n_out: int, align_corners: bool):
 def _tap_tensors(n_in: int, n_out: int, align_corners: bool,
                  device: torch.device, dtype: torch.dtype):
     """(lo, hi, 1 - frac, frac) 1-D tensors on ``device``, made once per
-    shape: the taps' host-to-device copies stay out of every later call."""
+    shape: the taps' host-to-device copies stay out of every later call.
+    Made as normal tensors even under ``inference_mode``, since a later
+    training step saves the weights for its backward."""
     lo, hi, frac = _bilinear_taps(n_in, n_out, align_corners)
-    idx = [torch.from_numpy(a.astype(np.int64)).to(device) for a in (lo, hi)]
-    wts = [torch.from_numpy(a).to(device, dtype) for a in (np.float32(1.0) - frac, frac)]
+    with torch.inference_mode(False):
+        idx = [torch.from_numpy(a.astype(np.int64)).to(device) for a in (lo, hi)]
+        wts = [torch.from_numpy(a).to(device, dtype) for a in (np.float32(1.0) - frac, frac)]
     return (*idx, *wts)
 
 
@@ -154,7 +157,8 @@ def nearest_indices(n_in: int, n_out: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _nearest_tensor(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(nearest_indices(n_in, n_out)).to(device)
+    with torch.inference_mode(False):     # a normal tensor: see _tap_tensors
+        return torch.from_numpy(nearest_indices(n_in, n_out)).to(device)
 
 
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -1,0 +1,346 @@
+"""The training driver.
+
+The port of ``tpuseg/train/trainer.py``: config -> data pipeline, model,
+Adam, loss, the fused augment+train step and the eval step; then the epoch
+loop with a one-step-lagged loss read (the host reads step k-1's loss
+after it has queued step k, so it never waits on an idle card), the
+epoch-end record (eval, best tracking, history.jsonl, checkpoint), resume,
+and a checkpoint on SIGTERM.
+
+Checkpoints are the port's own format (``tpuseg_torch.core.checkpoint``):
+model, optimizer, step, epoch and sampler state under
+``<checkpoint_dir>/step_<N>.pt``, ``keep_checkpoints`` of them, plus the
+best val-mIoU one under ``<checkpoint_dir>/best/`` and ``best.json``.
+
+The device is the CUDA card unless the caller passes ``device="cpu"``;
+with no card and no such request the constructor raises. What the
+default configuration does not run raises NotImplementedError naming its
+ROADMAP.md item. ``train.steps_per_dispatch`` is accepted and has no
+effect: PyTorch dispatches each step eagerly (A1).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from tpuseg_torch.configs import Config
+from tpuseg_torch.core.checkpoint import CheckpointManager
+from tpuseg_torch.core.dtypes import resolve_device
+from tpuseg_torch.data.augment import make_augment_fn
+from tpuseg_torch.data.combined import CombinedDataset
+from tpuseg_torch.data.pipeline import InputPipeline
+from tpuseg_torch.data.sources import build_source
+from tpuseg_torch.models.registry import build_model, validate_input_size
+from tpuseg_torch.train.loss import make_loss_fn
+from tpuseg_torch.train.metrics import (iou_from_confusion, mean_iou,
+                                        pixel_accuracy_from_confusion)
+from tpuseg_torch.train.train_step import (create_optimizer, make_eval_step,
+                                           make_train_step)
+
+log = logging.getLogger(__name__)
+
+
+def _unported_options(cfg: Config) -> List[tuple]:
+    """(is set, what, ROADMAP item) for each option the port cannot run yet."""
+    t = cfg.train
+    return [
+        (t.optimizer != "adam", f"optimizer={t.optimizer!r}", "A7, train"),
+        (bool(t.lr_schedule), f"lr_schedule={t.lr_schedule!r}", "A7, train"),
+        (bool(t.mu_dtype), "mu_dtype", "A7, train"),
+        (t.grads_bf16, "grads_bf16", "A7, train"),
+        (t.ema_decay > 0, "ema_decay", "A7, train"),
+        (t.grad_accum > 1, "grad_accum", "A7, train"),
+        (t.grad_clip_norm > 0, "grad_clip_norm", "A7, train"),
+        (t.remat, "remat", "A7, train"),
+        (bool(t.eval_tta), "eval_tta", "A7, train"),
+        (t.debug_nans, "debug_nans", "A7, train"),
+        (bool(t.tensorboard_dir), "tensorboard_dir", "A7, train"),
+        (bool(t.profile_dir), "profile_dir", "A7, train"),
+        (t.qat, "qat", "A11, QAT"),
+        (bool(t.distill_checkpoint), "distillation (distill_checkpoint)",
+         "A11, distillation"),
+        (isinstance(t.class_weights, str), "class_weights=auto", "A8, class_stats"),
+        (cfg.mesh.data not in (-1, 1) or cfg.mesh.spatial > 1,
+         f"mesh data={cfg.mesh.data} spatial={cfg.mesh.spatial}", "A13, multi-GPU"),
+    ]
+
+
+class Trainer:
+    """Wires config -> pipeline, model, optimizer, steps; runs train/eval."""
+
+    def __init__(self, cfg: Config, combined: Optional[CombinedDataset] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        for flag, what, item in _unported_options(cfg):
+            if flag:
+                raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if combined is None:
+            sources = [build_source(s, cfg.data.width, cfg.data.height)
+                       for s in cfg.data.sources]
+            weights = [s.weight for s in cfg.data.sources]
+            combined = CombinedDataset(sources, weights=weights if any(weights) else None,
+                                       val_split=cfg.data.val_split, seed=cfg.data.seed)
+        validate_input_size(cfg.model.name, cfg.data.height, cfg.data.width)
+        self.combined = combined
+        log.info("%s", combined.summary())
+        self.pipeline = InputPipeline(
+            combined, batch_size=cfg.train.batch_size, height=cfg.data.height,
+            width=cfg.data.width, device=self.device, seed=cfg.data.seed,
+            prefetch=cfg.data.prefetch, cache_bytes=cfg.data.cache_bytes)
+
+        self.model = build_model(cfg.model, seed=cfg.train.seed).to(
+            self.device, memory_format=torch.channels_last)
+        if cfg.train.init_checkpoint:
+            self._load_init_checkpoint(cfg.train.init_checkpoint)
+        self.optimizer = create_optimizer(self.model, lr=cfg.train.lr, b1=cfg.train.b1,
+                                          b2=cfg.train.b2, eps=cfg.train.eps)
+        self.augment = make_augment_fn(
+            cfg.data.height, cfg.data.width, heavy=cfg.data.heavy_augment,
+            augment=cfg.data.augment, mean=cfg.data.normalize_mean,
+            std=cfg.data.normalize_std)
+        self.aug_generator = torch.Generator(device=self.device).manual_seed(
+            cfg.data.seed + 1)
+        self.train_step = make_train_step(self.model, self.optimizer,
+                                          loss_fn=self._build_loss(),
+                                          augment_fn=self.augment)
+        self.eval_step = make_eval_step(
+            self.model, cfg.model.num_classes,
+            normalize=(cfg.data.normalize_mean, cfg.data.normalize_std))
+
+        self.ckpt: Optional[CheckpointManager] = None
+        self.best_ckpt: Optional[CheckpointManager] = None
+        if cfg.train.checkpoint_dir:
+            self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
+                                          max_to_keep=cfg.train.keep_checkpoints)
+            # the best-val-mIoU checkpoint has its own always-kept slot
+            self.best_ckpt = CheckpointManager(
+                os.path.join(cfg.train.checkpoint_dir, "best"), max_to_keep=1)
+        self.step = 0
+        self.epoch = 0              # epochs completed (checkpointed)
+        self.history: List[Dict] = []
+        self.step_losses: List[float] = []   # every step's loss, this process
+        self._history_path = cfg.train.history_file
+        if not self._history_path and cfg.train.checkpoint_dir:
+            self._history_path = os.path.join(cfg.train.checkpoint_dir, "history.jsonl")
+        if self._history_path == "none":
+            self._history_path = ""
+        self._best_miou = float("-inf")
+        self._es_best = float("-inf")
+        self._es_stale = 0
+        self._stop_early = False
+        self._preempted = False
+
+    def _build_loss(self):
+        """None => the step's default (plain CE); else make_loss_fn's loss."""
+        t = self.cfg.train
+        if (t.loss in ("", "ce") and not t.class_weights and t.label_smoothing == 0.0
+                and t.ignore_index < 0):
+            return None
+        weights = tuple(float(w) for w in t.class_weights) or None
+        if weights is not None and len(weights) != self.cfg.model.num_classes:
+            raise ValueError(
+                f"train.class_weights has {len(weights)} entries; model has "
+                f"{self.cfg.model.num_classes} classes")
+        return make_loss_fn(
+            t.loss, class_weights=weights, label_smoothing=t.label_smoothing,
+            focal_gamma=t.focal_gamma, dice_weight=t.dice_weight,
+            ignore_index=t.ignore_index if t.ignore_index >= 0 else None,
+            lovasz_bins=t.lovasz_bins)
+
+    def _load_init_checkpoint(self, path: str) -> None:
+        """Weights (and BN statistics) from a reference ``.pth``; optimizer
+        and sampler untouched. An Orbax directory raises (A4)."""
+        from tpuseg_torch.infer.predictor import load_variables
+
+        self.model.load_state_dict(load_variables(path, self.model.state_dict))
+        log.info("initialized params from %s", path)
+
+    # -- checkpointing -------------------------------------------------------
+
+    def _checkpoint_payload(self) -> dict:
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "epoch": self.epoch,
+                "sampler": self.pipeline.state()["sampler"]}
+
+    def save_checkpoint(self) -> None:
+        if self.ckpt is not None:
+            self.ckpt.save(self.step, self._checkpoint_payload())
+
+    def maybe_resume(self) -> bool:
+        """Restore the latest checkpoint of ``checkpoint_dir``; False when
+        there is none."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return False
+        saved = self.ckpt.restore(map_location=self.device)
+        self.model.load_state_dict(saved["model"])
+        self.optimizer.load_state_dict(saved["optimizer"])
+        self.step, self.epoch = int(saved["step"]), int(saved["epoch"])
+        self.pipeline.restore({"sampler": saved["sampler"]})
+        best_json = os.path.join(self.cfg.train.checkpoint_dir, "best.json")
+        if os.path.exists(best_json):
+            try:
+                with open(best_json) as f:
+                    self._best_miou = float(json.load(f)["val_miou"])
+            except (ValueError, KeyError, OSError):
+                log.warning("unreadable best.json; best watermark reset")
+        log.info("resumed from step %d", self.step)
+        return True
+
+    # -- loops ---------------------------------------------------------------
+
+    def steps_per_epoch(self) -> int:
+        if self.cfg.train.steps_per_epoch > 0:
+            return self.cfg.train.steps_per_epoch
+        return max(1, self.combined.train_size // self.cfg.train.batch_size)
+
+    def _install_preemption_handler(self):
+        """SIGTERM -> finish the running step, checkpoint, stop. Returns the
+        callback that restores the previous handler (a no-op off the main
+        thread, where signals cannot be bound)."""
+        import signal
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            return lambda: None
+        prev = signal.getsignal(signal.SIGTERM)
+
+        def handler(signum, frame):
+            self._preempted = True
+            log.warning("SIGTERM: will checkpoint and stop after the current step")
+
+        signal.signal(signal.SIGTERM, handler)
+        return lambda: signal.signal(signal.SIGTERM, prev)
+
+    def train(self, epochs: Optional[int] = None) -> List[Dict]:
+        cfg = self.cfg.train
+        epochs = epochs if epochs is not None else cfg.epochs
+        self._preempted = False
+        restore_signal = self._install_preemption_handler()
+        spe = self.steps_per_epoch()
+        if cfg.resume:
+            self.maybe_resume()
+        start_epoch = self.epoch
+        try:
+            for epoch in range(start_epoch, epochs):
+                t0 = time.perf_counter()
+                # a mid-epoch (preemption) checkpoint resumes into its epoch
+                done = min(max(0, self.step - epoch * spe), spe) if epoch == start_epoch else 0
+                steps_this = spe - done
+                if steps_this <= 0:
+                    # resumed exactly at an epoch boundary whose epoch-end never ran
+                    self.epoch = epoch + 1
+                    self._epoch_end(epoch, [], 0.0, 0)
+                    if self._stop_early:
+                        break
+                    continue
+                losses = self._run_epoch_steps(steps_this, epoch, epochs)
+                if self._preempted:
+                    if self.ckpt is None:
+                        log.warning("preempted at step %d — no checkpoint_dir set, "
+                                    "progress is lost", self.step)
+                    else:
+                        self.save_checkpoint()
+                        log.warning("preempted at step %d — checkpoint saved", self.step)
+                    break
+                self.epoch = epoch + 1
+                self._epoch_end(epoch, losses, time.perf_counter() - t0, steps_this)
+                if self._stop_early:
+                    break
+        finally:
+            restore_signal()
+        return self.history
+
+    def _run_epoch_steps(self, steps: int, epoch: int, epochs: int) -> List[float]:
+        cfg = self.cfg.train
+        losses: List[float] = []
+        pending = None      # the previous step's loss, read one step late
+        batch_gen = self.pipeline.train_batches(steps)
+        batches = batch_gen
+        if cfg.progress:
+            try:
+                from tqdm import tqdm
+
+                batches = tqdm(batch_gen, total=steps, desc=f"epoch {epoch + 1}/{epochs}")
+            except ImportError:  # pragma: no cover
+                pass
+        try:
+            for images, masks in batches:
+                metrics = self.train_step(images, masks, self.aug_generator)
+                self.step += 1
+                if pending is not None:
+                    losses.append(float(pending))
+                pending = metrics["loss"]
+                if cfg.log_every and self.step % cfg.log_every == 0 and losses:
+                    log.info("step %d | loss %.4f", self.step, losses[-1])
+                if self._preempted:
+                    break
+        finally:
+            # stop the producer before anything reads the sampler's state
+            batch_gen.close()
+        if pending is not None:
+            losses.append(float(pending))
+        self.step_losses.extend(losses)
+        return losses
+
+    def _epoch_end(self, epoch: int, losses: list, dt: float, steps_this: int) -> None:
+        """Epoch record + eval + best tracking + early stop + checkpoint."""
+        cfg = self.cfg.train
+        rec = {
+            "epoch": epoch + 1,
+            "step": self.step,
+            "train_loss": float(np.mean(losses)) if losses else float("nan"),
+            "imgs_per_sec": steps_this * cfg.batch_size / max(dt, 1e-9),
+            "seconds": dt,
+        }
+        if (self.combined.val_size > 0 and cfg.eval_every_epochs
+                and (epoch + 1) % cfg.eval_every_epochs == 0):
+            rec.update(self.evaluate())
+            miou = rec.get("val_miou")
+            if miou is not None and cfg.early_stop_patience > 0:
+                if miou > self._es_best + cfg.early_stop_min_delta:
+                    self._es_best, self._es_stale = miou, 0
+                else:
+                    self._es_stale += 1
+                    if self._es_stale >= cfg.early_stop_patience:
+                        self._stop_early = True
+                        rec["early_stop"] = True
+            if miou is not None and miou > self._best_miou:
+                self._best_miou = miou
+                rec["best"] = True
+                if self.best_ckpt is not None:
+                    self.best_ckpt.save(self.step, self._checkpoint_payload())
+                if cfg.checkpoint_dir:
+                    with open(os.path.join(cfg.checkpoint_dir, "best.json"), "w") as f:
+                        json.dump({"step": self.step, "val_miou": miou}, f)
+        self.history.append(rec)
+        log.info("%s", json.dumps(rec))
+        if self._history_path:
+            with open(self._history_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
+            self.save_checkpoint()
+
+    def evaluate(self) -> Dict[str, float]:
+        """Full pass over the val split: loss, pixel acc, per-class IoU, mIoU."""
+        tot = None
+        for images, masks, n_valid in self.pipeline.eval_batches():
+            out = self.eval_step(images, masks, n_valid)
+            tot = out if tot is None else {k: tot[k] + out[k] for k in out}
+        if tot is None or float(tot["n"]) == 0:
+            return {}
+        cm = tot["confusion"].cpu().numpy()
+        iou = iou_from_confusion(cm)
+        return {
+            "val_loss": float(tot["loss_sum"]) / float(tot["n"]),
+            "val_pixel_acc": pixel_accuracy_from_confusion(cm),
+            "val_miou": mean_iou(cm),
+            "val_iou_per_class": [None if np.isnan(v) else float(v) for v in iou],
+        }
