@@ -8,14 +8,16 @@ $CUDA_HOME or /usr/local/cuda, and PyTorch built for CUDA. Phases, each
 printing one JSON line; any failure raises and exits nonzero:
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit;
-2. build   — nvcc builds the five kernels from tpuseg_torch/csrc (one
+2. build   — nvcc builds the six kernels from tpuseg_torch/csrc (one
              process each, in parallel) into build/kernels; ptxas's
              register, shared-memory and spill report;
 3. kernels — each kernel against its plain PyTorch version at the serving
-             and training paths' shapes, and timed (CUDA events over
-             CUDA-graph replays, inputs rotated through more than 2x the
-             50 MB L2) beside the plain version and, where one PyTorch call
-             computes the same function, that call;
+             and training paths' shapes (fused_inverted_residual at the
+             encoder's 17 block shapes and two ragged ones), and timed
+             (CUDA events over CUDA-graph replays, inputs rotated through
+             more than 2x the 50 MB L2) beside the plain version and, where
+             one PyTorch call computes the same function, that call (for
+             the block, the port's eager InvertedResidual);
 4. serve   — the full-width mobilenetv2_unet (10 classes, 256x128, batch 8,
              --model.use_pallas=true --model.up_subpixel=false) served
              through the port's Predictor on 360x640 frames, with the launch
@@ -23,6 +25,17 @@ printing one JSON line; any failure raises and exits nonzero:
              holding the same seeded weights;
 5. head    — the model with upsample_head=False followed by the fused
              upsample2x_argmax kernel, against the full model's argmax;
+5b. mbconv — the served flagship's 17 encoder-block inputs, captured with
+             forward hooks on its served batches: fused_inverted_residual on
+             each block's folded eval weights against the plain version and
+             the eager block (no served path calls the kernel, as no JAX
+             path calls the TPU one);
+5c. families — mobilenetv2_fpn, mobilenetv2_deeplab, unet and light_unet
+             at full width served through the Predictor with colorize on
+             (argmax_colorize), against a Predictor with colorize off;
+5d. stem_s2d — the flagship served with and without --model.stem_s2d on
+             the same weights (the flag runs the plain stem conv: its JAX
+             rewrite is exact), the same class maps;
 6. train   — the full-width mobilenetv2_unet trained through
              ``tpuseg_torch.main`` with --train.loss=lovasz (256 bins, batch
              8, 256x128, Adam 1.5e-4, augment on, synthetic scenes): the
@@ -33,7 +46,9 @@ printing one JSON line; any failure raises and exits nonzero:
              algorithms: gradients and parameters bit-equal.
 
 Then the kernels summary line, nvidia-smi's line, and, last, the result
-line {"ok": true, "device": {...}}. Without a CUDA device, or without the
+line {"ok": true, "device": {...}}. A kernel's ``launches`` there are its
+launches on the serving or training path; fused_inverted_residual runs on
+no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
 result. fp32 comparisons run with TF32 off for both cuDNN and matmul.
 """
@@ -60,8 +75,13 @@ from tpuseg_torch.core.weights import init_weights
 from tpuseg_torch.data.augment import normalize_images
 from tpuseg_torch.data.class_maps import COLOR_MAP_BGR
 from tpuseg_torch.infer.predictor import Predictor
+from tpuseg_torch.models.blocks import nchw, nhwc
+from tpuseg_torch.models.mobilenetv2 import (BlockShape, InvertedResidual, MobileNetV2Encoder,
+                                             inverted_residual_shapes)
 from tpuseg_torch.models.registry import build_model
 from tpuseg_torch.ops import _build, kernels
+from tpuseg_torch.ops.mbconv import (fold_inverted_residual, fused_inverted_residual,
+                                     mbconv_plain)
 from tpuseg_torch.ops.resize import (resize_bilinear, resize_nearest_host,
                                      upsample2x_bilinear)
 
@@ -82,6 +102,7 @@ REPLACES = {
     "fused_upsample_concat_conv": "tpuseg/ops/pallas_kernels.py:314",
     "lovasz_histograms": "tpuseg/ops/lovasz_pallas.py:124",
     "lovasz_lookup": "tpuseg/ops/lovasz_pallas.py:170",
+    "fused_inverted_residual": "tpuseg/ops/pallas_mbconv.py:136",
 }
 SOURCES = {
     "argmax_colorize": "tpuseg_torch/csrc/argmax_colorize.cu",
@@ -89,6 +110,7 @@ SOURCES = {
     "fused_upsample_concat_conv": "tpuseg_torch/csrc/upconcat_conv.cu",
     "lovasz_histograms": "tpuseg_torch/csrc/lovasz_histograms.cu",
     "lovasz_lookup": "tpuseg_torch/csrc/lovasz_lookup.cu",
+    "fused_inverted_residual": "tpuseg_torch/csrc/mbconv.cu",
 }
 # the Lovász planes of one training batch: [C, B*H*W] = [10, 262,144]
 LOVASZ_SHAPE = (CLASSES, BATCH * MODEL_HW[0] * MODEL_HW[1])
@@ -106,7 +128,20 @@ UPCONCAT_SHAPES = {
     "up3": ((BATCH, 32, 64, 24), (BATCH, 16, 32, 128), 64),
     "up4": ((BATCH, 64, 128, 16), (BATCH, 32, 64, 64), 32),
 }
-
+# the encoder's 17 inverted-residual blocks at batch 8 and a 256x128 input,
+# read off a full-width encoder; then odd H at stride 2 and a W that the
+# kernel's 8-wide tile does not divide
+MBCONV_BLOCKS = inverted_residual_shapes(MobileNetV2Encoder(), *MODEL_HW)
+MBCONV_RAGGED = [BlockShape(16, 96, 24, 2, False, True, 9, 13),
+                 BlockShape(24, 144, 24, 1, True, True, 8, 11)]
+# fp32 sums of up to 960 terms (the project over hidden) taken in another
+# order than cuBLAS's and cuDNN's: about 1e-5 of values up to ~30 expected
+MBCONV_ATOL = MBCONV_RTOL = 1e-4
+FAMILIES = ("mobilenetv2_fpn", "mobilenetv2_deeplab", "unet", "light_unet")
+# stem_s2d serves the same plain stem conv (its JAX rewrite is exact), so
+# the logits are expected bit-equal; 1e-6 leaves room for cuDNN choosing
+# another algorithm for the second model
+S2D_ATOL = S2D_RTOL = 1e-6
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -298,6 +333,7 @@ def phase_kernels():
         library="F.conv2d(cat([skip, F.interpolate(x)])) (cuDNN, TF32 off)",
         per_call=per_shape, note="ms are sums over the four up blocks of one forward")
     out.update(lovasz_rows())
+    out["fused_inverted_residual"] = mbconv_row()
     emit({"phase": "kernels", **out})
     return out
 
@@ -384,11 +420,130 @@ def lovasz_rows():
     return rows
 
 
+def mbconv_block(shape: BlockShape, seed: int):
+    """A port InvertedResidual of ``shape`` on the card in eval, seeded
+    weights and random BatchNorm statistics, and its folded kernel
+    arguments."""
+    block = InvertedResidual(shape.cin, shape.cout, shape.stride, shape.hidden // shape.cin)
+    init_weights(block, make_generator(seed), random_bn=True)
+    block = block.to("cuda", memory_format=torch.channels_last).eval()
+    return block, fold_inverted_residual(block)
+
+
+def mbconv_check(block, folded, x, got) -> tuple:
+    """(kernel vs plain, kernel vs eager block) max abs errors of the
+    kernel's ``got`` on NHWC x; raises past MBCONV_ATOL + MBCONV_RTOL * |ref|."""
+    want = mbconv_plain(x, **folded)
+    with torch.inference_mode():
+        # a torch Conv2d gives (H + 1) // 2 rows at stride 2 and odd H, the
+        # reference H // 2: the first H // 2 agree
+        eager = block(nchw(x)).permute(0, 2, 3, 1)[:, :got.shape[1], :got.shape[2]]
+    torch.cuda.synchronize()
+    errs = []
+    for ref, what in ((want, "plain version"), (eager, "eager block")):
+        err = (got - ref).abs()
+        if got.shape != ref.shape or bool((err > MBCONV_ATOL + MBCONV_RTOL * ref.abs()).any()):
+            raise AssertionError(f"fused_inverted_residual {tuple(x.shape)} off the {what} "
+                                 f"by {float(err.max())}")
+        errs.append(float(err.max()))
+    return tuple(errs)
+
+
+def mbconv_row():
+    """fused_inverted_residual at the encoder's 17 block shapes (timed) and
+    at the ragged ones (checked only)."""
+    per_block, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                              n_bytes=0.0, flops=0.0)
+    max_err = max_err_eager = 0.0
+    for i, shape in enumerate(MBCONV_BLOCKS + MBCONV_RAGGED):
+        cin, hidden, cout, stride, _, expand, h, w = shape
+        block, folded = mbconv_block(shape, 700 + i)
+        x = randn((BATCH, h, w, cin), 720 + i)
+        err, err_eager = mbconv_check(block, folded, x, fused_inverted_residual(x, **folded))
+        max_err, max_err_eager = max(max_err, err), max(max_err_eager, err_eager)
+        if i >= len(MBCONV_BLOCKS):
+            per_block.append(dict(shape=[BATCH, h, w, cin, cout, stride], ragged=True,
+                                  max_abs_err=err, max_abs_err_vs_eager=err_eager))
+            continue
+        ho, wo = h // stride, w // stride
+        weights = sum(v.numel() for v in folded.values() if isinstance(v, torch.Tensor))
+        n_bytes = 4 * (BATCH * h * w * cin + BATCH * ho * wo * cout + weights)
+        flops = 2 * BATCH * ((h * w * cin * hidden if expand else 0)
+                             + ho * wo * hidden * 9 + ho * wo * hidden * cout)
+        ins = copies(lambda j: (randn((BATCH, h, w, cin), 740 + 40 * i + j),),
+                     4 * BATCH * h * w * cin)
+
+        def eager(x, block=block):
+            with torch.inference_mode():
+                return block(nchw(x))
+
+        row = dict(block=i + 1, shape=[BATCH, h, w, cin, hidden, cout, stride],
+                   max_abs_err=err, max_abs_err_vs_eager=err_eager,
+                   ms=device_ms(lambda x: fused_inverted_residual(x, **folded), ins),
+                   plain_ms=device_ms(lambda x: mbconv_plain(x, **folded), ins),
+                   library_ms=device_ms(eager, ins), mb=n_bytes / 1e6, gflop=flops / 1e9)
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops)
+        per_block.append(row)
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[k] += row[k]
+        tot["n_bytes"] += n_bytes
+        tot["flops"] += flops
+    return dict(
+        max_abs_err=max_err, max_abs_err_vs_eager=max_err_eager, ms=tot["ms"],
+        plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=tot["bound_ms"],
+        bound_by=("bytes" if tot["n_bytes"] / PEAK_BYTES_PER_S >= tot["flops"] / PEAK_FP32_PER_S
+                  else "operations"),
+        total_mb=tot["n_bytes"] / 1e6, total_gflop=tot["flops"] / 1e9,
+        library="the port's eager InvertedResidual in eval: three cuDNN convs + BN "
+                "(TF32 off); no one PyTorch call computes the block",
+        per_call=per_block, note="ms are sums over the 17 encoder blocks of one forward")
+
+
 def seeded_weights(cfg, path: Path) -> None:
     """Seeded full-width weights with non-trivial BatchNorm statistics."""
     model = build_model(cfg.model)
     init_weights(model, make_generator(SEED), random_bn=True)
     torch.save(model.state_dict(), path)
+
+
+def serve_frames():
+    rng = np.random.RandomState(SEED)
+    return [rng.randint(0, 256, (BATCH, *FRAME_HW, 3), np.uint8)
+            for _ in range(SERVE_BATCHES)]
+
+
+def timed(p, frames):
+    """(frames/s, p50 batch ms) over TIMED_BATCHES calls, host clock."""
+    for f in frames[:2]:
+        p(f)
+    lat = []
+    for i in range(TIMED_BATCHES):
+        t0 = time.perf_counter()
+        p(frames[i % len(frames)])
+        lat.append(time.perf_counter() - t0)
+    return BATCH * len(lat) / sum(lat), float(np.median(lat)) * 1e3
+
+
+def check_served(outs, frames, ref, what: str):
+    """(agreement per batch with ``ref``, classes seen); raises if a shape
+    is off or a colour is not the palette entry of its class."""
+    palette = kernels._pack_palette(COLOR_MAP_BGR)
+    agree, distinct = [], set()
+    for f, (classes, colors) in zip(frames, outs):
+        if classes.shape != (BATCH, *FRAME_HW) or colors.shape != classes.shape:
+            raise AssertionError(f"{what}: output shape {classes.shape}")
+        if not np.array_equal(colors, palette[classes]):
+            raise AssertionError(f"{what}: colours are not the palette of the classes")
+        agree.append(float((classes == ref(f)).mean()))
+        distinct |= set(np.unique(classes).tolist())
+    return agree, distinct
+
+
+def model_input(pred, frames: np.ndarray) -> torch.Tensor:
+    """The Predictor's preprocessed NCHW model input for one batch."""
+    x = torch.from_numpy(frames).cuda().float()
+    return normalize_images(resize_bilinear(x, *MODEL_HW), pred.normalize_mean,
+                            pred.normalize_std).permute(0, 3, 1, 2)
 
 
 def phase_serve(pth: Path, name: str):
@@ -397,41 +552,20 @@ def phase_serve(pth: Path, name: str):
     pred = Predictor(cfg.model, checkpoint=str(pth), input_hw=MODEL_HW, batch_size=BATCH)
     ref = Predictor(plain_cfg.model, checkpoint=str(pth), input_hw=MODEL_HW,
                     batch_size=BATCH)
-    rng = np.random.RandomState(SEED)
-    frames = [rng.randint(0, 256, (BATCH, *FRAME_HW, 3), np.uint8)
-              for _ in range(SERVE_BATCHES)]
+    frames = serve_frames()
 
     kernels.reset_launches()
     outs = [pred(f) for f in frames]
     counts = dict(kernels.launches)
     want = {"fused_upsample_concat_conv": 4 * SERVE_BATCHES,
             "argmax_colorize": SERVE_BATCHES, "upsample2x_argmax": 0,
-            "lovasz_histograms": 0, "lovasz_lookup": 0}
+            "lovasz_histograms": 0, "lovasz_lookup": 0, "fused_inverted_residual": 0}
     if counts != want:
         raise AssertionError(f"serve launches {counts}, expected {want}")
 
-    palette = kernels._pack_palette(COLOR_MAP_BGR)
-    agree, distinct = [], set()
-    for f, (classes, colors) in zip(frames, outs):
-        if classes.shape != (BATCH, *FRAME_HW) or colors.shape != classes.shape:
-            raise AssertionError(f"serve output shape {classes.shape}")
-        if not np.array_equal(colors, palette[classes]):
-            raise AssertionError("colours are not the palette of the classes")
-        agree.append(float((classes == ref(f)).mean()))
-        distinct |= set(np.unique(classes).tolist())
+    agree, distinct = check_served(outs, frames, ref, "serve")
     if min(agree) < 0.999 or len(distinct) < 2:
         raise AssertionError(f"serve agreement {agree}, classes {sorted(distinct)}")
-
-    def timed(p):
-        """(frames/s, p50 batch ms) over TIMED_BATCHES calls, host clock."""
-        for f in frames[:2]:
-            p(f)
-        lat = []
-        for i in range(TIMED_BATCHES):
-            t0 = time.perf_counter()
-            p(frames[i % SERVE_BATCHES])
-            lat.append(time.perf_counter() - t0)
-        return BATCH * len(lat) / sum(lat), float(np.median(lat)) * 1e3
 
     def stages(p):
         """Median ms of each step of Predictor.__call__, synchronized apart."""
@@ -459,7 +593,7 @@ def phase_serve(pth: Path, name: str):
     rows = {}
     for label, p in (("kernels", pred), ("plain_decoder_colorize", plain_colorize),
                      ("plain_decoder_no_colorize", ref)):
-        fps, p50 = timed(p)
+        fps, p50 = timed(p, frames)
         rows[label] = {"frames_per_s": fps, "p50_batch_ms": p50, "stages_ms": stages(p)}
     emit({"phase": "serve", "card": name, "launches": counts, "agreement_min": min(agree),
           "classes_seen": sorted(distinct), "batch": BATCH, "frame_hw": list(FRAME_HW),
@@ -470,9 +604,7 @@ def phase_serve(pth: Path, name: str):
 @torch.inference_mode()
 def phase_head(pred, frames):
     model = pred.model
-    x = torch.from_numpy(frames[0]).cuda().float()
-    x = normalize_images(resize_bilinear(x, *MODEL_HW), pred.normalize_mean,
-                         pred.normalize_std).permute(0, 3, 1, 2)
+    x = model_input(pred, frames[0])
     kernels.reset_launches()
     model.upsample_head = False
     half = model(x).permute(0, 2, 3, 1).contiguous()
@@ -481,7 +613,7 @@ def phase_head(pred, frames):
     counts = dict(kernels.launches)
     model.upsample_head = True
     want = {"fused_upsample_concat_conv": 4, "argmax_colorize": 0, "upsample2x_argmax": 1,
-            "lovasz_histograms": 0, "lovasz_lookup": 0}
+            "lovasz_histograms": 0, "lovasz_lookup": 0, "fused_inverted_residual": 0}
     if counts != want:
         raise AssertionError(f"head launches {counts}, expected {want}")
     full = model(x).permute(0, 2, 3, 1)
@@ -494,6 +626,109 @@ def phase_head(pred, frames):
     emit({"phase": "head", "launches": counts, "mismatches": int(differ.sum()),
           "near_ties": int(near.sum()), "distinct_classes": int(got.unique().numel())})
     return counts
+
+
+@torch.inference_mode()
+def phase_mbconv(pred, frames):
+    """fused_inverted_residual on the served flagship's 17 encoder blocks:
+    each block's input captured by a forward pre-hook while the Predictor
+    serves ``frames``, its eval BatchNorm folded; the kernel against the
+    plain version and the eager block on that input."""
+    blocks = list(pred.model.backbone.features)[1:18]
+    captured = []
+    hooks = [b.register_forward_pre_hook(
+        lambda m, args, i=i: captured.append((i, nhwc(args[0]).clone())))
+        for i, b in enumerate(blocks)]
+    try:
+        for f in frames:
+            pred(f)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    if len(captured) != 17 * len(frames):
+        raise AssertionError(f"captured {len(captured)} block inputs, want {17 * len(frames)}")
+    folded = [fold_inverted_residual(b) for b in blocks]
+    kernels.reset_launches()
+    outs = [fused_inverted_residual(x, **folded[i]) for i, x in captured]
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    want = {k: 0 for k in counts}
+    want["fused_inverted_residual"] = 17 * len(frames)
+    if counts != want:
+        raise AssertionError(f"mbconv launches {counts}, expected {want}")
+    errs = [mbconv_check(blocks[i], folded[i], x, got) for (i, x), got in zip(captured, outs)]
+    emit({"phase": "mbconv", "launches": counts, "batches": len(frames),
+          "max_abs_err": max(e for e, _ in errs), "max_abs_err_vs_eager": max(e for _, e in errs),
+          "max_abs_err_per_block": [max(errs[k][0] for k in range(i, len(errs), 17))
+                                    for i in range(17)],
+          "max_abs_output": float(max(o.abs().max() for o in outs))})
+    return counts
+
+
+def phase_families(tmp: Path, frames):
+    """The four other families at full width (registry defaults, 10
+    classes) served with colorize on, each against a Predictor with
+    colorize off on the same seeded weights."""
+    rows = {}
+    for name in FAMILIES:
+        cfg = load_config([f"--model.name={name}"])
+        pth = tmp / f"{name}.pth"
+        seeded_weights(cfg, pth)
+        kw = dict(checkpoint=str(pth), input_hw=MODEL_HW, batch_size=BATCH)
+        pred = Predictor(cfg.model, colorize_on_device=True, **kw)
+        ref = Predictor(cfg.model, **kw)
+        kernels.reset_launches()
+        outs = [pred(f) for f in frames]
+        counts = dict(kernels.launches)
+        want = {k: 0 for k in counts}
+        want["argmax_colorize"] = len(frames)
+        if counts != want:
+            raise AssertionError(f"{name} launches {counts}, expected {want}")
+        agree, distinct = check_served(outs, frames, ref, name)
+        with torch.inference_mode():
+            logits = pred.model(model_input(pred, frames[0]))
+        channels = 1 if name == "light_unet" else CLASSES
+        if tuple(logits.shape) != (BATCH, channels, *MODEL_HW) or \
+                not bool(logits.isfinite().all()):
+            raise AssertionError(f"{name} logits {tuple(logits.shape)} not finite or wrong shape")
+        if min(agree) < 0.999 or (channels > 1 and len(distinct) < 2):
+            raise AssertionError(f"{name} agreement {agree}, classes {sorted(distinct)}")
+        fps, p50 = timed(pred, frames)
+        rows[name] = {"launches": counts, "agreement_min": min(agree),
+                      "classes_seen": sorted(distinct), "frames_per_s": fps,
+                      "p50_batch_ms": p50,
+                      "params_m": sum(p.numel() for p in pred.model.parameters()) / 1e6}
+        del pred, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "families", "batch": BATCH, "frame_hw": list(FRAME_HW),
+          "model_hw": list(MODEL_HW), **rows})
+    return rows
+
+
+def phase_stem_s2d(pth: Path, frames):
+    """The flagship served with --model.stem_s2d on the same weights as
+    without: the flag is taken and serves the same class maps (the serve
+    phase's kernel path)."""
+    flags = ["--model.use_pallas=true", "--model.up_subpixel=false"]
+    kw = dict(checkpoint=str(pth), input_hw=MODEL_HW, batch_size=BATCH)
+    s2d = Predictor(load_config(flags + ["--model.stem_s2d=true"]).model, **kw)
+    plain = Predictor(load_config(flags).model, **kw)
+    kernels.reset_launches()
+    outs = [s2d(f) for f in frames]
+    counts = dict(kernels.launches)
+    want = {k: 0 for k in counts}
+    want.update(fused_upsample_concat_conv=4 * len(frames), argmax_colorize=len(frames))
+    if counts != want:
+        raise AssertionError(f"stem_s2d launches {counts}, expected {want}")
+    agree, _ = check_served(outs, frames, lambda f: plain(f)[0], "stem_s2d")
+    with torch.inference_mode():
+        x = model_input(s2d, frames[0])
+        a, b = s2d.model(x), plain.model(x)
+    diff = (a - b).abs()
+    if bool((diff > S2D_ATOL + S2D_RTOL * b.abs()).any()) or min(agree) < 0.999:
+        raise AssertionError(f"stem_s2d: logits off by {float(diff.max())}, agreement {agree}")
+    emit({"phase": "stem_s2d", "launches": counts, "agreement_min": min(agree),
+          "max_abs_logit_diff": float(diff.max()), "max_abs_logit": float(b.abs().max())})
 
 
 def phase_train(perf) -> dict:
@@ -519,7 +754,8 @@ def phase_train(perf) -> dict:
 
         cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
         want = {"argmax_colorize": 0, "upsample2x_argmax": 0, "fused_upsample_concat_conv": 0,
-                "lovasz_histograms": TRAIN_STEPS, "lovasz_lookup": TRAIN_STEPS}
+                "lovasz_histograms": TRAIN_STEPS, "lovasz_lookup": TRAIN_STEPS,
+                "fused_inverted_residual": 0}
         if counts != want or tr.step != TRAIN_STEPS:
             raise AssertionError(f"train launches {counts} after {tr.step} steps, want {want}")
         slice_cfg = dict(name="mobilenetv2_unet", width_mult=1.0, num_classes=10,
@@ -675,19 +911,28 @@ def main() -> int:
         pth = Path(tmp) / "weights.pth"
         seeded_weights(load_config([]), pth)
         pred, frames, serve_counts = phase_serve(pth, info["name"])
-    head_counts = phase_head(pred, frames)
+        head_counts = phase_head(pred, frames)
+        mbconv_counts = phase_mbconv(pred, frames)
+        del pred
+        phase_families(Path(tmp), frames)
+        phase_stem_s2d(pth, frames)
     train_counts = phase_train(perf)
     launches = {"argmax_colorize": serve_counts["argmax_colorize"],
                 "upsample2x_argmax": head_counts["upsample2x_argmax"],
                 "fused_upsample_concat_conv": serve_counts["fused_upsample_concat_conv"],
                 "lovasz_histograms": train_counts["lovasz_histograms"],
-                "lovasz_lookup": train_counts["lovasz_lookup"]}
+                "lovasz_lookup": train_counts["lovasz_lookup"],
+                # no served or training path runs the block kernel, as no JAX
+                # path runs the TPU one: its launches are the mbconv check's
+                "fused_inverted_residual": 0}
+    check_only = {"fused_inverted_residual": {
+        "path": "check only", "check_launches": mbconv_counts["fused_inverted_residual"]}}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": perf[k]["max_abs_err"],
          "ms": perf[k]["ms"], "plain_ms": perf[k]["plain_ms"],
          "bound_ms": perf[k]["bound_ms"], "bound_by": perf[k]["bound_by"],
-         "library_ms": perf[k]["library_ms"]}
+         "library_ms": perf[k]["library_ms"], **check_only.get(k, {})}
         for k in REPLACES]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

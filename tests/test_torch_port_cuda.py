@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tpuseg_torch.data.class_maps import COLOR_MAP_BGR, COLOR_MAP_RGB
+from tpuseg_torch.models.mobilenetv2 import MobileNetV2Encoder, inverted_residual_shapes
 from tpuseg_torch.ops import kernels
 from tpuseg_torch.ops.resize import upsample2x_bilinear
 
@@ -173,3 +174,76 @@ def test_lovasz_wrappers_reject_what_the_kernels_do_not_take(card):
         lovasz.lovasz_lookup(e.t(), torch.zeros(64, 256, device="cuda"))
     with pytest.raises(ValueError):
         lovasz.lovasz_histograms(e[:, ::2], fg[:, ::2])
+
+
+# the encoder's 17 blocks at batch 8, 256x128: (H, W, Cin, hidden, Cout,
+# stride, use_res, expand), then odd H at stride 2, W off the 8-wide tile, no
+# expand at stride 2, and one output pixel
+MBCONV_SHAPES = [
+    (s.h, s.w, s.cin, s.hidden, s.cout, s.stride, s.use_res, s.expand)
+    for s in inverted_residual_shapes(MobileNetV2Encoder(), 128, 256)
+] + [
+    (9, 13, 16, 96, 24, 2, False, True), (7, 11, 24, 144, 24, 1, True, True),
+    (5, 5, 16, 16, 8, 2, False, False), (2, 2, 40, 40, 3, 2, False, False),
+]
+
+
+def _mbconv_args(h, w, cin, hidden, cout, seed, batch=8, expand=True):
+    r = lambda shape, k, scale=1.0: _randn(shape, seed * 16 + k, scale)
+    pos = lambda n, k: r((n,), k).abs() + 0.5
+    return (r((batch, h, w, cin), 0), r((cin, hidden), 1, 0.2) if expand else None,
+            pos(hidden, 2) if expand else None, r((hidden,), 3, 0.1) if expand else None,
+            r((3, 3, hidden), 4, 0.2), pos(hidden, 5), r((hidden,), 6, 0.1),
+            r((hidden, cout), 7, 0.1), pos(cout, 8), r((cout,), 9, 0.1))
+
+
+@pytest.mark.parametrize("case", MBCONV_SHAPES,
+                         ids=[f"block{i + 1}" for i in range(17)] + ["odd-h-s2", "ragged-w",
+                                                                     "t1-s2", "one-pixel"])
+def test_fused_inverted_residual_matches_plain(card, case):
+    from tpuseg_torch.ops.mbconv import fused_inverted_residual, mbconv_plain
+
+    h, w, cin, hidden, cout, stride, use_res, expand = case
+    args = _mbconv_args(h, w, cin, hidden, cout, MBCONV_SHAPES.index(case), expand=expand)
+    before = kernels.launches["fused_inverted_residual"]
+    got = fused_inverted_residual(*args, stride=stride, use_res=use_res)
+    again = fused_inverted_residual(*args, stride=stride, use_res=use_res)
+    want = mbconv_plain(*args, stride=stride, use_res=use_res)
+    assert kernels.launches["fused_inverted_residual"] == before + 2
+    assert got.shape == (8, h // stride, w // stride, cout)
+    assert torch.equal(got, again)            # the splits are summed in a fixed order
+    # fp32 sums of up to 960 terms taken in another order than cuBLAS's
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,h,w,hidden,stride", [
+    (8, 64, 128, 32, 1), (8, 4, 8, 960, 1), (8, 8, 16, 384, 1), (1, 2, 2, 2000, 2),
+    (2, 3, 5, 33, 1)])
+def test_mbconv_plan_covers_the_hidden_channels_in_at_most_six_chunks(card, b, h, w, hidden,
+                                                                      stride):
+    from tpuseg_torch.ops.mbconv import mbconv_plan
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits, per = mbconv_plan(b, h, w, hidden, stride, sms)
+    nchunks = -(-hidden // 32)
+    assert 1 <= per <= 6 and (splits - 1) * per < nchunks <= splits * per
+    if (b, h, w, hidden) == (8, 64, 128, 32):
+        assert (splits, per) == (1, 1)           # block 1: many tiles, one chunk
+    if (b, h, w, hidden) == (8, 4, 8, 960):
+        assert splits > 5                         # blocks 15-17: the hidden split widely
+
+
+def test_fused_inverted_residual_refuses_what_the_kernel_does_not_take(card):
+    from tpuseg_torch.ops.mbconv import fused_inverted_residual, mbconv_plan
+
+    args = _mbconv_args(8, 8, 16, 96, 24, 30, batch=1)
+    with pytest.raises(RuntimeError, match="plan"):
+        mbconv_plan(1, 8, 8, 96, 3, 132)
+    with pytest.raises(TypeError):
+        fused_inverted_residual(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_inverted_residual(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError, match="different devices"):
+        fused_inverted_residual(args[0].cpu(), *args[1:])
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fused_inverted_residual(args[0].bfloat16(), *args[1:])

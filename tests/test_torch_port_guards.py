@@ -116,13 +116,16 @@ def test_unported_checkpoints_models_and_paths_raise(tmp_path):
         Predictor(ModelConfig(), checkpoint=str(tmp_path / "missing"), device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):
         state_dict_from_flax({"params": {}, "batch_stats": {}, "quant": {}})
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        build_model(ModelConfig(compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="stem_s2d"):
-        build_model(ModelConfig(stem_s2d=True))
-    for name in ("unet", "light_unet", "mobilenetv2_fpn", "mobilenetv2_deeplab"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            build_model(ModelConfig(name=name))
+    for name in ("mobilenetv2_unet", "unet", "light_unet", "mobilenetv2_fpn",
+                 "mobilenetv2_deeplab"):
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            build_model(ModelConfig(name=name, compute_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Predictor(ModelConfig(name="mobilenetv2_fpn"), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="artifact"):
+        Predictor(ModelConfig(name="unet"), artifact="model.stablehlo", device="cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        state_dict_from_flax({"params": {"inc": {}}, "batch_stats": {}, "quant": {}})
     with pytest.raises(KeyError, match="Unknown model"):
         build_model(ModelConfig(name="nope"))
     with pytest.raises(ValueError, match="multiples of 32"):

@@ -34,7 +34,8 @@ class ModelConfig:
     # Route the decoder's upsample+concat+conv (eval) and the Predictor's
     # argmax+colorize through the hand-written CUDA kernels.
     use_pallas: bool = False
-    # Space-to-depth stem rewrite (not ported yet).
+    # The JAX package's exact space-to-depth stem rewrite (a TPU layout
+    # choice): taken, and the stem runs as the plain conv, the same function.
     stem_s2d: bool = False
     # Exact subpixel/d2s rewrite of decoder conv1s (tpuseg_torch.ops.subpixel).
     # Takes precedence over use_pallas, as in the JAX package.

@@ -2,8 +2,10 @@
 
 The port's ``state_dict`` uses the reference's key names (torchvision's
 ``backbone.features.N.conv.M.*``, the decoder's ``upK.conv.conv.{0,1,3,4}.*``
-and ``outc.conv.{0,1,3}.*``), so a reference checkpoint loads with
-``load_state_dict(strict=True)``.
+and ``outc.conv.{0,1,3}.*``; the UNet's ``inc``, ``downK.mpconv.1`` and
+``sem_out``), so a reference checkpoint loads with
+``load_state_dict(strict=True)``. FPN and DeepLab, which have no reference
+checkpoint, take flax's module names (``lat5.0``, ``aspp.aspp_rate2.0``).
 
 ``state_dict_from_flax`` is the inverse of the JAX package's
 ``tpuseg/core/torch_import.py``, written afresh: HWIO kernels become OIHW
@@ -83,19 +85,17 @@ def _convbn(out: dict, conv: str, bn: str, p: Mapping, s: Mapping) -> None:
     _bn(out, bn, p["bn"], s["bn"])
 
 
-def state_dict_from_flax(variables: Mapping,
-                         dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``{"params", "batch_stats"}`` tree of a
-    MobileNetV2UNet (numpy or JAX arrays) -> the port's state_dict, its
-    floating tensors in ``dtype`` (float64 keeps an f64 tree exact)."""
-    if "quant" in variables:
-        raise NotImplementedError(
-            "int8 'quant' variables are not ported yet (ROADMAP.md, queue "
-            "B: int8/QAT)"
-        )
-    params, stats = variables["params"], variables["batch_stats"]
-    out: Dict[str, torch.Tensor] = {}
-    enc_p, enc_s = params["backbone"], stats["backbone"]
+def _double_conv(out: dict, base: str, p: Mapping, s: Mapping) -> None:
+    _convbn(out, f"{base}.0", f"{base}.1", p["conv1"], s["conv1"])
+    _convbn(out, f"{base}.3", f"{base}.4", p["conv2"], s["conv2"])
+
+
+def _out_conv(out: dict, base: str, p: Mapping, s: Mapping) -> None:
+    _convbn(out, f"{base}.0", f"{base}.1", p["conv1"], s["conv1"])
+    _conv(out, f"{base}.3", p["conv2"])
+
+
+def _encoder(out: dict, enc_p: Mapping, enc_s: Mapping) -> None:
     n_feats = len(enc_p)
     for i in range(n_feats):
         p, s = enc_p[f"features_{i}"], enc_s[f"features_{i}"]
@@ -112,19 +112,62 @@ def state_dict_from_flax(variables: Mapping,
                 p["depthwise"], s["depthwise"])
         _conv(out, f"{base}.conv.{j + 1}", p["project"]["conv"])
         _bn(out, f"{base}.conv.{j + 2}", p["project"]["bn"], s["project"]["bn"])
-    for k in ("up1", "up2", "up3", "up4"):
-        p, s = params[k]["conv"], stats[k]["conv"]
-        base = f"{k}.conv.conv"
-        _convbn(out, f"{base}.0", f"{base}.1", p["conv1"], s["conv1"])
-        _convbn(out, f"{base}.3", f"{base}.4", p["conv2"], s["conv2"])
-    p, s = params["outc"], stats["outc"]
-    _convbn(out, "outc.conv.0", "outc.conv.1", p["conv1"], s["conv1"])
-    _conv(out, "outc.conv.3", p["conv2"])
+
+
+def _by_name(out: dict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """A flax subtree whose module names are the port's: a ``ConvBNAct``
+    (``conv`` + ``bn``) -> ``{prefix}.0``/``.1``, an ``nn.Conv`` ->
+    ``{prefix}``, anything else recursed into."""
+    if "kernel" in p:
+        _conv(out, prefix, p)
+    elif "conv" in p and "bn" in p:
+        _convbn(out, f"{prefix}.0", f"{prefix}.1", p, s)
+    else:
+        for k in p:
+            _by_name(out, f"{prefix}.{k}", p[k], s.get(k, {}))
+
+
+def state_dict_from_flax(variables: Mapping,
+                         dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``{"params", "batch_stats"}`` tree of any registry
+    family (numpy or JAX arrays) -> the port's state_dict, its floating
+    tensors in ``dtype`` (float64 keeps an f64 tree exact).
+
+    The family is read from the tree: ``inc`` is a UNet (a LightUNet nests
+    it under ``unet``), ``up4`` the MobileNetV2UNet, and anything else
+    (FPN, DeepLab) maps flax's module names one to one. ``stem_s2d`` uses
+    the stem's own kernel, so it needs nothing here."""
+    if "quant" in variables:
+        raise NotImplementedError(
+            "int8 'quant' variables are not ported yet (ROADMAP.md, queue "
+            "B: int8/QAT)"
+        )
+    params, stats = variables["params"], variables["batch_stats"]
+    if "unet" in params:                      # LightUNet
+        params, stats = params["unet"], stats["unet"]
+    out: Dict[str, torch.Tensor] = {}
+    if "inc" in params:                       # UNet: the reference's names
+        _double_conv(out, "inc.conv.conv", params["inc"], stats["inc"])
+        for k in ("down1", "down2", "down3"):
+            _double_conv(out, f"{k}.mpconv.1.conv", params[k]["conv"], stats[k]["conv"])
+        for k in ("up1", "up2", "up3"):
+            _double_conv(out, f"{k}.conv.conv", params[k]["conv"], stats[k]["conv"])
+        _out_conv(out, "sem_out.conv", params["sem_out"], stats["sem_out"])
+    else:
+        _encoder(out, params["backbone"], stats["backbone"])
+        if "up4" in params:                   # MobileNetV2UNet
+            for k in ("up1", "up2", "up3", "up4"):
+                _double_conv(out, f"{k}.conv.conv", params[k]["conv"], stats[k]["conv"])
+            _out_conv(out, "outc.conv", params["outc"], stats["outc"])
+        else:                                 # FPN, DeepLab
+            for k in params:
+                if k != "backbone":
+                    _by_name(out, k, params[k], stats.get(k, {}))
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in out.items()}
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
-    """Load a reference MobileNetV2UNet ``.pth`` state_dict for the port.
+    """Load a reference ``.pth`` state_dict (any family) for the port.
 
     The reference registers the encoder slices twice, as ``down1..down5``
     (``features[2:4]`` and so on; a slice of a Sequential keeps the feature

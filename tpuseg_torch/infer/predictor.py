@@ -14,8 +14,12 @@ The nearest upscale back to the frame size runs on the host by default
 ``resize_nearest`` — no cv2 — so only model-size maps cross to the host;
 ``upscale_on_host=False`` runs ``resize_nearest`` on the device instead.
 
+Every family of the registry serves through it, the model built from
+``model_cfg``; ``light_unet``'s one output channel gives class 0 at every
+pixel, as the JAX Predictor's argmax does.
+
 Checkpoints: ``""`` gives a seeded init, a path ending in ``.pth`` is a
-reference state_dict. Not ported yet, each raising NotImplementedError with
+state_dict (reference key names; flax's module names for FPN and DeepLab). Not ported yet, each raising NotImplementedError with
 its ROADMAP.md item: Orbax directories, ``artifact``, ``mesh``,
 ``preprocess_on_host``, ``device_close``, ``fetch_pack4`` and int8 ``quant``.
 """

@@ -11,7 +11,9 @@ directly:
 - ``Up`` concatenates the skip FIRST, then the upsampled input
   (bilinear x2, ``align_corners=False``);
 - ``OutConv.conv`` is ``Sequential(Conv1x1, BN, ReLU, Conv1x1)`` (keys
-  ``0,1,3``).
+  ``0,1,3``);
+- ``InConv.conv`` and ``Down.mpconv.1`` hold the UNet's DoubleConvs, as the
+  reference's ``inconv`` and ``down`` do.
 
 BatchNorm eps is 1e-5 and momentum 0.1 (torch's defaults, the same
 statistics as the JAX package's flax decay 0.9). Every BatchNorm is
@@ -84,20 +86,17 @@ def hwio(weight: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBNAct(nn.Sequential):
-    """Conv -> BatchNorm -> activation (torchvision's ConvBNActivation)."""
+    """Conv -> BatchNorm -> activation (torchvision's ConvBNActivation).
+
+    ``dilation`` pads by ``dilation * (kernel - 1) // 2`` (the ASPP's
+    explicit padding ``r`` for a 3x3 at rate ``r``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  groups: int = 1, bias: bool = False,
-                 act: Optional[Type[nn.Module]] = nn.ReLU6,
-                 stem_s2d: bool = False):
-        if stem_s2d:
-            raise NotImplementedError(
-                "stem_s2d (the space-to-depth stem) is not ported yet "
-                "(ROADMAP.md, queue B: stem_s2d)"
-            )
+                 act: Optional[Type[nn.Module]] = nn.ReLU6, dilation: int = 1):
         layers = [
-            nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
-                      groups=groups, bias=bias),
+            nn.Conv2d(cin, cout, kernel, stride, dilation * (kernel - 1) // 2,
+                      dilation=dilation, groups=groups, bias=bias),
             BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
         ]
         if act is not None:
@@ -157,6 +156,31 @@ class DoubleConv(nn.Module):
         for layer in self.conv[1:]:
             y = layer(y)
         return y
+
+
+class InConv(nn.Module):
+    """The reference inconv: a DoubleConv under ``.conv`` (keys
+    ``inc.conv.conv.*``)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = DoubleConv(cin, cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Down(nn.Module):
+    """MaxPool(2) then DoubleConv — the reference down, whose
+    ``mpconv = Sequential(MaxPool2d, double_conv)`` gives the keys
+    ``downK.mpconv.1.conv.*``."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.mpconv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mpconv(x)
 
 
 class Up(nn.Module):

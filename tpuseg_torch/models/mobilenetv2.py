@@ -11,11 +11,18 @@ torchvision's ``mobilenet_v2().features`` into five stages by index:
 
 ``MobileNetV2Encoder.features`` is that Sequential, with torchvision's key
 names (``features.N.conv.M...``), and ``forward`` returns the five taps.
+``stem_s2d`` is accepted and runs the plain stem conv: in the JAX package
+it selects an exact rewrite of the same 3x3 stride-2 conv (a 2x2 conv over
+a space-to-depth input, a TPU layout choice), so the function, the weights
+and the keys are the same either way.
+
+``inverted_residual_shapes`` reads the 17 blocks' shapes off an encoder,
+for the checks of the fused block kernel (``tpuseg_torch.ops.mbconv``).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn as nn
@@ -72,9 +79,8 @@ class MobileNetV2Encoder(nn.Module):
     def __init__(self, width_mult: float = 1.0, stem_s2d: bool = False):
         super().__init__()
         c_stem = make_divisible(32 * width_mult)
-        feats: List[nn.Module] = [
-            ConvBNAct(3, c_stem, 3, 2, stem_s2d=stem_s2d)
-        ]
+        del stem_s2d        # the same conv either way (module docstring)
+        feats: List[nn.Module] = [ConvBNAct(3, c_stem, 3, 2)]
         cin = c_stem
         taps = []
         for t, c, n, s in INVERTED_RESIDUAL_SETTINGS:
@@ -96,3 +102,35 @@ class MobileNetV2Encoder(nn.Module):
             if i in STAGE_TAPS:
                 taps.append(x)
         return taps
+
+
+class BlockShape(NamedTuple):
+    """One InvertedResidual: channels, stride, residual, whether it has an
+    expand conv, and the H x W of its input."""
+    cin: int
+    hidden: int
+    cout: int
+    stride: int
+    use_res: bool
+    expand: bool
+    h: int
+    w: int
+
+
+def inverted_residual_shapes(encoder: MobileNetV2Encoder, h: int,
+                             w: int) -> List[BlockShape]:
+    """The shape of each InvertedResidual of ``encoder.features`` when the
+    encoder's input is ``h`` x ``w``."""
+    out = []
+    for layer in encoder.features:
+        if isinstance(layer, InvertedResidual):
+            expand = len(layer.conv) == 4
+            conv = layer.conv[-3][0]                     # the depthwise 3x3
+            out.append(BlockShape(layer.conv[0][0].in_channels, conv.in_channels,
+                                  layer.conv[-2].out_channels, conv.stride[0],
+                                  layer.use_res, expand, h, w))
+        else:
+            conv = layer[0]
+        (kh, kw), (ph, pw), (sh, sw) = conv.kernel_size, conv.padding, conv.stride
+        h, w = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+    return out

@@ -1,7 +1,9 @@
 """Model registry: name -> constructor, driven by ModelConfig.
 
-Only ``mobilenetv2_unet`` is ported; the JAX package's other families are
-queued in ROADMAP.md (A10) and raise a KeyError that says so.
+The five families of the JAX package's registry, with its defaults:
+``base_filters`` sets the FPN and ASPP widths (0 -> 128) and the UNets'
+(0 -> 64 and 32); ``stem_s2d`` reaches the two MobileNetV2 families that
+take it in the JAX package (FPN and DeepLab) and the flagship.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ import torch.nn as nn
 
 from tpuseg_torch.configs import ModelConfig
 from tpuseg_torch.core.dtypes import torch_dtype
+from tpuseg_torch.models.deeplab import MobileNetV2DeepLab
+from tpuseg_torch.models.fpn import MobileNetV2FPN
 from tpuseg_torch.models.mobilenetv2_unet import MobileNetV2UNet
+from tpuseg_torch.models.unet import LightUNet, UNet
 
 MODEL_REGISTRY: Dict[str, Callable[[ModelConfig], nn.Module]] = {
     "mobilenetv2_unet": lambda cfg: MobileNetV2UNet(
@@ -24,18 +29,28 @@ MODEL_REGISTRY: Dict[str, Callable[[ModelConfig], nn.Module]] = {
         up_subpixel=cfg.up_subpixel,
         head_fp32=cfg.head_fp32,
     ),
+    "mobilenetv2_fpn": lambda cfg: MobileNetV2FPN(
+        output_channels=cfg.num_classes,
+        width_mult=cfg.width_mult,
+        fpn_channels=cfg.base_filters or 128,
+        stem_s2d=cfg.stem_s2d,
+    ),
+    "mobilenetv2_deeplab": lambda cfg: MobileNetV2DeepLab(
+        output_channels=cfg.num_classes,
+        width_mult=cfg.width_mult,
+        aspp_channels=cfg.base_filters or 128,
+        stem_s2d=cfg.stem_s2d,
+    ),
+    "unet": lambda cfg: UNet(
+        output_channels=cfg.num_classes, base_filters=cfg.base_filters or 64),
+    # one output channel whatever num_classes says, as in the JAX package
+    "light_unet": lambda cfg: LightUNet(base_filters=cfg.base_filters or 32),
 }
 
-# registered in the JAX package, not ported yet (ROADMAP.md A10)
-NOT_YET_PORTED = ("mobilenetv2_fpn", "mobilenetv2_deeplab", "unet", "light_unet")
+_UNETS = ("unet", "light_unet")
 
 
 def _check_name(name: str) -> None:
-    if name in NOT_YET_PORTED:
-        raise KeyError(
-            f"model {name!r} is not yet ported to tpuseg_torch (ROADMAP.md "
-            f"A10); ported: {sorted(MODEL_REGISTRY)}"
-        )
     if name not in MODEL_REGISTRY:
         raise KeyError(
             f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}"
@@ -49,7 +64,7 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> nn.Module:
     from tpuseg_torch.core.weights import init_weights
 
     _check_name(cfg.name)
-    torch_dtype(cfg.compute_dtype)  # raises for what this slice cannot run
+    torch_dtype(cfg.compute_dtype)  # raises for what the port cannot run
     with torch.device("meta"):
         model = MODEL_REGISTRY[cfg.name](cfg)
     model = model.to_empty(device="cpu")
@@ -58,11 +73,17 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> nn.Module:
 
 
 def size_divisor(model) -> int:
-    """H and W must be multiples of this: the MobileNetV2 encoder
-    downsamples x32 (the only family ported)."""
+    """H and W must be multiples of this (an instance or a registry name):
+    the MobileNetV2 encoders downsample x32, the UNets pool x8, and the
+    decoders' exact 2x upsamples must land back on every skip grid."""
     if isinstance(model, str):
         _check_name(model)
-    return 32
+        return 8 if model in _UNETS else 32
+    if isinstance(model, UNet):
+        return 8
+    if isinstance(model, (MobileNetV2UNet, MobileNetV2FPN, MobileNetV2DeepLab)):
+        return 32
+    return 1
 
 
 def validate_input_size(model, height: int, width: int) -> None:

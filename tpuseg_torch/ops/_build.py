@@ -28,7 +28,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("argmax_colorize", "upsample2x_argmax", "upconcat_conv",
-           "lovasz_histograms", "lovasz_lookup")
+           "lovasz_histograms", "lovasz_lookup", "mbconv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

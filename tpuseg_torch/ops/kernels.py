@@ -39,6 +39,7 @@ launches: Dict[str, int] = {
     "fused_upsample_concat_conv": 0,
     "lovasz_histograms": 0,     # tpuseg_torch/ops/lovasz.py
     "lovasz_lookup": 0,
+    "fused_inverted_residual": 0,   # tpuseg_torch/ops/mbconv.py
 }
 
 
@@ -56,7 +57,11 @@ _SIGNATURES = {
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "lovasz_histograms": ("tpuseg_lovasz_histograms", [_P, _P, _P, _P, _I, _LL, _I, _P]),
     "lovasz_lookup": ("tpuseg_lovasz_lookup", [_P, _P, _P, _I, _LL, _I, _P]),
+    "mbconv": ("tpuseg_mbconv", [_P] * 12 + [_I] * 9 + [_P]),
+    "mbconv_plan": ("tpuseg_mbconv_plan", [_I] * 6 + [_P, _P]),
 }
+# symbols that live in another source's library
+_LIBRARY = {"mbconv_plan": "mbconv"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,7 +69,7 @@ def _c_fn(source: str):
     from tpuseg_torch.ops import _build
 
     symbol, argtypes = _SIGNATURES[source]
-    fn = getattr(_build.load(source), symbol)
+    fn = getattr(_build.load(_LIBRARY.get(source, source)), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -108,6 +108,16 @@ def upsample2x_bilinear(x: torch.Tensor, align_corners: bool = False) -> torch.T
     return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], align_corners)
 
 
+def up_pow2_bilinear(x: torch.Tensor, times: int) -> torch.Tensor:
+    """2^times bilinear upsample of [..., H, W, C] as a cascade of exact x2
+    ``align_corners=False`` steps: the FPN and DeepLab families' definition
+    of an Nx upsample, which differs from one direct Nx resize near the
+    edges."""
+    for _ in range(times):
+        x = upsample2x_bilinear(x, align_corners=False)
+    return x
+
+
 def _phase2_ac_true(x: torch.Tensor, axis: int):
     """Even/odd output phases of the exact align_corners=True 2x upsample.
 
