@@ -65,23 +65,68 @@ def test_upsample2x_argmax_matches_plain(card, shape):
     assert not bool(((got != want) & ~near).any())
 
 
-@pytest.mark.parametrize("case", [
-    (8, 8, 16, 64, 1280, 256),    # up1 at batch 8, 256x128 input
+UPCONCAT_CASES = [
+    (8, 8, 16, 64, 1280, 256),    # up1 at batch 8, 256x128 input (split K)
     (8, 16, 32, 32, 256, 128),    # up2
     (8, 32, 64, 24, 128, 64),     # up3
-    (8, 64, 128, 16, 64, 32),     # up4
+    (8, 64, 128, 16, 64, 32),     # up4 (no split)
     (1, 6, 10, 5, 7, 3),          # ragged tiles, channel chunks and Cout
     (2, 2, 2, 3, 17, 33),
-])
+    (2, 8, 12, 21, 37, 40),       # Cs, Cx off the 16-channel chunk and odd
+    (2, 10, 20, 20, 44, 96),      # a chunk straddles Cs; 16-byte copies
+    (1, 16, 34, 18, 30, 72),      # Cout off the 64-channel tile
+]
+
+
+def _upconcat_inputs(b, h2, w2, cs, cx, cout):
+    return (_randn((b, h2, w2, cs), 2), _randn((b, h2 // 2, w2 // 2, cx), 3),
+            _randn((3, 3, cs + cx, cout), 4, 0.05), _randn((cout,), 5, 0.1))
+
+
+@pytest.mark.parametrize("case", UPCONCAT_CASES)
 def test_fused_upconcat_matches_plain(card, case):
-    b, h2, w2, cs, cx, cout = case
-    skip = _randn((b, h2, w2, cs), 2)
-    x = _randn((b, h2 // 2, w2 // 2, cx), 3)
-    w = _randn((3, 3, cs + cx, cout), 4, 0.05)
-    bias = _randn((cout,), 5, 0.1)
-    got = kernels.fused_upsample_concat_conv(skip, x, w, bias)
-    want = kernels.fused_upconcat_plain(skip, x, w, bias)
+    args = _upconcat_inputs(*case)
+    got = kernels.fused_upsample_concat_conv(*args)
+    again = kernels.fused_upsample_concat_conv(*args)
+    want = kernels.fused_upconcat_plain(*args)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, again)           # K splits are summed in a fixed order
+
+
+@pytest.mark.parametrize("case", UPCONCAT_CASES)
+def test_upconcat_plan_splits_k_only_where_the_tiles_are_few(card, case):
+    b, h2, w2, cs, cx, cout = case
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits, per = kernels.upconcat_plan(b, h2, w2, cs, cx, cout, sms)
+    nchunks = max(1, -(-(cs + cx) // 16))
+    assert 1 <= per and (splits - 1) * per < nchunks <= splits * per
+    tiles = b * -(-h2 // 8) * -(-w2 // 16) * -(-cout // (64 if cout > 32 else 32))
+    if splits > 1:
+        assert tiles * splits <= 2 * sms        # one wave of two resident blocks per SM
+    if case[:3] == (8, 8, 16):
+        assert splits > 1                       # up1: 32 tiles on the card
+    if case[:3] == (8, 64, 128):
+        assert splits == 1                      # up4: 512 tiles
+
+
+def test_upconcat_scratch_is_the_size_the_plan_asks_for(card):
+    """The launcher writes exactly splits x B*2H*2W*Cout floats of scratch:
+    a guard past the end is left untouched and the result is right."""
+    b, h2, w2, cs, cx, cout = 2, 6, 10, 20, 44, 40
+    skip, x, w, bias = _upconcat_inputs(b, h2, w2, cs, cx, cout)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits, _ = kernels.upconcat_plan(b, h2, w2, cs, cx, cout, sms)
+    assert splits > 1
+    n_out = b * h2 * w2 * cout
+    scratch = torch.full((splits * n_out + 1024,), 7.0, device=card)
+    out = torch.empty((b, h2, w2, cout), device=card)
+    kernels._launch("upconcat_conv", card, skip.data_ptr(), x.data_ptr(), w.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h2, w2, cs, cx,
+                    cout, sms)
+    torch.cuda.synchronize()
+    assert bool((scratch[splits * n_out:] == 7.0).all())
+    torch.testing.assert_close(out, kernels.fused_upconcat_plain(skip, x, w, bias),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -125,7 +170,9 @@ def _lovasz_planes(c, p, seed):
     return as_t(errors), as_t(fg)
 
 
-@pytest.mark.parametrize("c,p", [(10, 262144), (3, 1001), (4, 7), (2, 1)])
+# rows start unaligned when P % 4 != 0 (3 and 5 classes of 1001, 4097, 262147)
+@pytest.mark.parametrize("c,p", [(10, 262144), (3, 1001), (4, 7), (2, 1), (5, 4097),
+                                 (3, 262147)])
 def test_lovasz_kernels_match_plain(card, c, p):
     from tpuseg_torch.ops import lovasz
 
@@ -145,6 +192,33 @@ def test_lovasz_kernels_match_plain(card, c, p):
     assert torch.equal(ek.grad, ep.grad)
     assert kernels.launches["lovasz_histograms"] == before["lovasz_histograms"] + 2
     assert kernels.launches["lovasz_lookup"] == before["lovasz_lookup"] + 2
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lovasz_histograms_repeat_bit_equal_counts(card, offset):
+    """Counts and fg sums are bit-equal over repeated calls; offset 1 starts
+    the planes one row of 1001 floats in, off 16-byte alignment."""
+    from tpuseg_torch.ops import lovasz
+
+    e, fg = _lovasz_planes(4, 1001, 14)
+    e, fg = e[offset:], fg[offset:]
+    first = lovasz.lovasz_histograms(e, fg)
+    again = lovasz.lovasz_histograms(e, fg)
+    hp = lovasz.lovasz_histograms_plain(e, fg)
+    for k in (0, 1):
+        assert torch.equal(first[k], again[k]) and torch.equal(first[k], hp[k])
+    torch.testing.assert_close(first[2], hp[2], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("c,p", [(10, 262144), (2, (1 << 24) + 3), (1, 40 << 20), (3, 5)])
+def test_lovasz_hist_plan_fills_the_card_and_keeps_blocks_exact(card, c, p):
+    from tpuseg_torch.ops import lovasz
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    nblk = lovasz.lovasz_hist_plan(c, p, sms)
+    assert nblk >= 1 and -(-p // nblk) < (1 << 23) + 4 * 256
+    if p >= 256 * 16 * sms:
+        assert c * nblk >= 2 * sms - c and c * nblk <= max(2 * sms, c * -(-p // (1 << 23)))
 
 
 def test_lovasz_histogram_counts_stay_exact_past_2_24_pixels(card):

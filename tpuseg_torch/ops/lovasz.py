@@ -24,18 +24,25 @@ own; the two agree wherever no error is exactly 1.0.)
 Dispatch goes by the tensor's device, as in ``ops/kernels.py``: a CPU
 tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. Each launch adds one to ``kernels.launches[<wrapper name>]``.
+
+Both kernels are bound by the bytes of the [C, P] planes. The histogram
+kernel loads e and fg as float4s, several per thread in flight, and adds
+into 32 lane-private copies of the histograms in shared memory, so the
+lanes of a warp never collide; its grid fills the card's resident slots
+once (``lovasz_hist_plan``, the kernel's own rule, from the SM count).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from tpuseg_torch.ops.kernels import _launch, _on_cuda, _require_f32_contiguous, launches
+from tpuseg_torch.ops.kernels import (_c_fn, _launch, _on_cuda, _require_f32_contiguous,
+                                      launches)
 
 NB = 256
 _THREADS = 256
-# a histogram block's float partials of 0s and 1s are exact below 2**24 pixels
-_BLOCK_PIXELS = 1 << 23
 
 
 def _check_plane(name: str, t: torch.Tensor) -> None:
@@ -71,6 +78,18 @@ def lovasz_histograms_plain(errors: torch.Tensor, fg: torch.Tensor):
     return h[0], h[1], h[2]
 
 
+def lovasz_hist_plan(c: int, p: int, sms: int) -> int:
+    """Histogram blocks per class for [C, P] planes on a card with ``sms``
+    SMs. The rule is the kernel's own (``tpuseg_lovasz_hist_plan``): the
+    grid fills the card's resident slots once, and each block holds fewer
+    than 2**23 pixels, which keeps its float partials of 0s and 1s exact."""
+    nblk = ctypes.c_int()
+    rc = _c_fn("lovasz_hist_plan")(c, p, sms, ctypes.byref(nblk))
+    if rc != 0:
+        raise RuntimeError(f"lovasz histogram plan failed: CUDA error {rc}")
+    return nblk.value
+
+
 def lovasz_histograms(errors: torch.Tensor, fg: torch.Tensor):
     """Per class, per bin: pixel count, fg sum and error sum.
 
@@ -86,7 +105,8 @@ def lovasz_histograms(errors: torch.Tensor, fg: torch.Tensor):
         return lovasz_histograms_plain(errors, fg)
     _require_f32_contiguous(errors=errors, fg=fg)
     c, p = errors.shape
-    nblk = max(1, min(256, -(-p // (_THREADS * 32))), -(-p // _BLOCK_PIXELS))
+    sms = torch.cuda.get_device_properties(errors.device).multi_processor_count
+    nblk = lovasz_hist_plan(c, p, sms)
     partial = torch.empty((c, nblk, 3, NB), dtype=torch.float32, device=errors.device)
     hist = torch.empty((c, 3, NB), dtype=torch.float32, device=errors.device)
     _launch("lovasz_histograms", errors.device, errors.data_ptr(), fg.data_ptr(),
