@@ -19,9 +19,12 @@ printing one JSON line; any failure raises and exits nonzero:
              one PyTorch call computes the same function, that call (for
              the block, the port's eager InvertedResidual; for the
              decoder, cuDNN on channels_last views, the layout the port
-             runs); the two redesigned kernels also repeat bit-equal, and
-             the decoder's error against a float64 reference is at most
-             twice the plain version's;
+             runs); the decoder, the block and upsample2x_argmax also
+             repeat bit-equal; the decoder's error against a float64
+             reference is at most twice the plain version's, the block's
+             (mbconv_f64) is recorded beside the plain version's; and the
+             launch floor (a one-element fill_ in the same graph timing)
+             is timed beside upsample2x_argmax, whose bound lies below it;
 4. serve   — the full-width mobilenetv2_unet (10 classes, 256x128, batch 8,
              --model.use_pallas=true --model.up_subpixel=false) served
              through the port's Predictor on 360x640 frames, with the launch
@@ -94,9 +97,11 @@ from tpuseg_torch.ops.resize import (resize_bilinear, resize_nearest_host,
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12
-# the decoder kernel's exact-fp32 route: each fp32 product is three TF32
-# products (big*big + big*small + small*big) on the tensor cores
+# the decoder's and the block's exact-fp32 route: each fp32 product is three
+# TF32 products (big*big + big*small + small*big) on the tensor cores
 TC_ROUTE = "3xTF32 mma.sync m16n8k8 on the tensor cores: 3 TF32 products per fp32 term"
+MBCONV_ROUTE = ("3xTF32 mma.sync for the two 1x1 products (3 TF32 products per fp32 term "
+                "at 495 TFLOP/s) plus the depthwise FMAs on the CUDA cores at 67 TFLOP/s")
 L2_BYTES = 50 * 2**20
 
 BATCH, MODEL_HW, FRAME_HW, CLASSES, SEED = 8, (128, 256), (360, 640), 10, 0
@@ -249,6 +254,30 @@ def upconcat_f64(skip, x, w, b) -> torch.Tensor:
     return y.permute(0, 2, 3, 1) + b.double()
 
 
+def mbconv_f64(x, we, se, be, wd, sd, bd, wp, sp, bp, stride=1, use_res=False):
+    """The block in float64 throughout, NHWC: the reference that the
+    kernel's and the plain version's fp32 errors are measured against
+    (``mbconv_plain`` itself computes in fp32)."""
+    d = lambda t: t.double()
+    y = d(x)
+    if we is not None:
+        y = (y @ d(we) * d(se) + d(be)).clamp(0.0, 6.0)
+    h, w = y.shape[1], y.shape[2]
+    ho, wo = h // stride, w // stride
+    yp = F.pad(y, (0, 0, 1, 1, 1, 1))
+    acc = sum(yp[:, dy:dy + h:stride, dx:dx + w:stride][:, :ho, :wo] * d(wd)[dy, dx]
+              for dy in range(3) for dx in range(3))
+    out = (acc * d(sd) + d(bd)).clamp(0.0, 6.0) @ d(wp) * d(sp) + d(bp)
+    return out + d(x) if use_res else out
+
+
+def launch_floor_ms() -> float:
+    """The least device time of one kernel in device_ms's timing: a
+    one-element fill_, captured and replayed as the kernels are."""
+    return device_ms(lambda t: t.fill_(1.0), [(torch.empty(1, device="cuda"),)
+                                               for _ in range(32)])
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the path's shapes, and timings."""
     out = {}
@@ -280,20 +309,25 @@ def phase_kernels():
     shape = (BATCH, MODEL_HW[0] // 2, MODEL_HW[1] // 2, CLASSES)
     logits = randn(shape, 2)
     got = kernels.upsample2x_argmax(logits)
+    again = kernels.upsample2x_argmax(logits)
     want = kernels.upsample2x_argmax_plain(logits)
     up = upsample2x_bilinear(logits, align_corners=True)
     near = top2_margin(up) < NEAR_TIE
     differ = got != want
-    if bool((differ & ~near).any()):
-        raise AssertionError("upsample2x_argmax disagrees beyond near-ties")
+    # the same taps, rounding order and strict '>' as the plain version
+    if bool(differ.any()) or not torch.equal(got, again):
+        raise AssertionError(f"upsample2x_argmax: {int(differ.sum())} pixels differ from the "
+                             "plain version, or repeated calls differ")
     n_out = BATCH * MODEL_HW[0] * MODEL_HW[1]
     n_in = math.prod(shape)
     ins = copies(lambda i: (randn(shape, 200 + i),), n_in * 4)
     lib_ins = [(x.permute(0, 3, 1, 2).contiguous(),) for (x,) in ins]
     out["upsample2x_argmax"] = dict(
         max_abs_err=float(below_max(up, got).max()),
-        near_ties=int(near.sum()), mismatches=int(differ.sum()),
+        near_ties=int(near.sum()), mismatches=int(differ.sum()), bit_equal=True,
+        repeat_bit_equal=True,
         ms=device_ms(kernels.upsample2x_argmax, ins),
+        launch_floor_ms=launch_floor_ms(),
         plain_ms=device_ms(kernels.upsample2x_argmax_plain, ins),
         library_ms=device_ms(lambda x: F.interpolate(
             x, scale_factor=2, mode="bilinear", align_corners=True).argmax(1), lib_ins),
@@ -486,25 +520,43 @@ def mbconv_check(block, folded, x, got) -> tuple:
 
 def mbconv_row():
     """fused_inverted_residual at the encoder's 17 block shapes (timed) and
-    at the ragged ones (checked only)."""
+    at the ragged ones (checked only): against the plain version and the
+    eager block, against float64 beside the plain version, repeat calls
+    bit-equal; per block the two bounds (the 3xTF32 route and exact fp32
+    on the CUDA cores) and the hidden-channel split."""
+    from tpuseg_torch.ops.mbconv import mbconv_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_block, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                              n_bytes=0.0, flops=0.0)
+                              bound_fp32_ms=0.0, n_bytes=0.0, flops=0.0)
     max_err = max_err_eager = 0.0
     for i, shape in enumerate(MBCONV_BLOCKS + MBCONV_RAGGED):
-        cin, hidden, cout, stride, _, expand, h, w = shape
+        cin, hidden, cout, stride, use_res, expand, h, w = shape
         block, folded = mbconv_block(shape, 700 + i)
         x = randn((BATCH, h, w, cin), 720 + i)
-        err, err_eager = mbconv_check(block, folded, x, fused_inverted_residual(x, **folded))
+        got = fused_inverted_residual(x, **folded)
+        again = fused_inverted_residual(x, **folded)
+        err, err_eager = mbconv_check(block, folded, x, got)
+        if not torch.equal(got, again):
+            raise AssertionError(f"fused_inverted_residual block {i + 1}: repeated calls differ")
+        ref64 = mbconv_f64(x, **folded)
+        err64 = float((got.double() - ref64).abs().max())
+        plain_err64 = float((mbconv_plain(x, **folded).double() - ref64).abs().max())
         max_err, max_err_eager = max(max_err, err), max(max_err_eager, err_eager)
+        errs = dict(max_abs_err=err, max_abs_err_vs_eager=err_eager, max_abs_err_vs_f64=err64,
+                    plain_max_abs_err_vs_f64=plain_err64, repeat_bit_equal=True,
+                    splits=mbconv_plan(BATCH, h, w, cin, hidden, cout, stride, sms, expand))
         if i >= len(MBCONV_BLOCKS):
-            per_block.append(dict(shape=[BATCH, h, w, cin, cout, stride], ragged=True,
-                                  max_abs_err=err, max_abs_err_vs_eager=err_eager))
+            per_block.append(dict(shape=[BATCH, h, w, cin, hidden, cout, stride], ragged=True,
+                                  **errs))
             continue
         ho, wo = h // stride, w // stride
         weights = sum(v.numel() for v in folded.values() if isinstance(v, torch.Tensor))
         n_bytes = 4 * (BATCH * h * w * cin + BATCH * ho * wo * cout + weights)
-        flops = 2 * BATCH * ((h * w * cin * hidden if expand else 0)
-                             + ho * wo * hidden * 9 + ho * wo * hidden * cout)
+        flops_1x1 = 2 * BATCH * ((h * w * cin * hidden if expand else 0)
+                                 + ho * wo * hidden * cout)
+        flops_dw = 2 * BATCH * ho * wo * hidden * 9
+        flops = flops_1x1 + flops_dw
         ins = copies(lambda j: (randn((BATCH, h, w, cin), 740 + 40 * i + j),),
                      4 * BATCH * h * w * cin)
 
@@ -512,22 +564,33 @@ def mbconv_row():
             with torch.inference_mode():
                 return block(nchw(x))
 
-        row = dict(block=i + 1, shape=[BATCH, h, w, cin, hidden, cout, stride],
-                   max_abs_err=err, max_abs_err_vs_eager=err_eager,
+        row = dict(block=i + 1, shape=[BATCH, h, w, cin, hidden, cout, stride], **errs,
                    ms=device_ms(lambda x: fused_inverted_residual(x, **folded), ins),
                    plain_ms=device_ms(lambda x: mbconv_plain(x, **folded), ins),
                    library_ms=device_ms(eager, ins), mb=n_bytes / 1e6, gflop=flops / 1e9)
-        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops)
+        # the route: 3 TF32 products per 1x1 term, the depthwise on the CUDA
+        # cores, or the bytes, whichever is longer
+        t_ops = 3 * flops_1x1 / PEAK_TF32_PER_S + flops_dw / PEAK_FP32_PER_S
+        t_bytes = n_bytes / PEAK_BYTES_PER_S
+        row["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["bound_fp32_ms"], _ = bound_ms(n_bytes, flops)
         per_block.append(row)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fp32_ms"):
             tot[k] += row[k]
         tot["n_bytes"] += n_bytes
         tot["flops"] += flops
+    timed_rows = [r for r in per_block if "block" in r]
     return dict(
         max_abs_err=max_err, max_abs_err_vs_eager=max_err_eager, ms=tot["ms"],
         plain_ms=tot["plain_ms"], library_ms=tot["library_ms"], bound_ms=tot["bound_ms"],
-        bound_by=("bytes" if tot["n_bytes"] / PEAK_BYTES_PER_S >= tot["flops"] / PEAK_FP32_PER_S
-                  else "operations"),
+        bound_by=("operations" if all(r["bound_by"] == "operations" for r in timed_rows)
+                  else "bytes"),
+        bound_tc_ms=tot["bound_ms"], bound_tc_route=MBCONV_ROUTE,
+        bound_fp32_ms=tot["bound_fp32_ms"],
+        bound_fp32_route="exact fp32 FMA on the CUDA cores at 67 TFLOP/s",
+        blocks_closer_to_f64_than_plain=sum(
+            r["max_abs_err_vs_f64"] <= r["plain_max_abs_err_vs_f64"] for r in per_block),
         total_mb=tot["n_bytes"] / 1e6, total_gflop=tot["flops"] / 1e9,
         library="the port's eager InvertedResidual in eval: three cuDNN convs + BN "
                 "(TF32 off); no one PyTorch call computes the block",
@@ -961,8 +1024,13 @@ def main() -> int:
                 # path runs the TPU one: its launches are the mbconv check's
                 "fused_inverted_residual": 0}
     dec = perf["fused_upsample_concat_conv"]
+    blk = perf["fused_inverted_residual"]
     extra = {"fused_inverted_residual": {
-        "path": "check only", "check_launches": mbconv_counts["fused_inverted_residual"]},
+        "path": "check only", "check_launches": mbconv_counts["fused_inverted_residual"],
+        "bound_tc_ms": blk["bound_tc_ms"], "bound_tc_route": blk["bound_tc_route"],
+        "bound_fp32_ms": blk["bound_fp32_ms"],
+        "per_call_ms": [r["ms"] for r in blk["per_call"] if "block" in r]},
+        "upsample2x_argmax": {"launch_floor_ms": perf["upsample2x_argmax"]["launch_floor_ms"]},
         "fused_upsample_concat_conv": {
             "bound_tc_ms": dec["bound_tc_ms"], "bound_tc_route": dec["bound_tc_route"],
             "bound_fp32_ms": dec["bound_fp32_ms"],

@@ -54,15 +54,30 @@ def test_argmax_colorize_matches_plain(card, shape):
     assert np.array_equal(col.cpu().numpy(), col_p.cpu().numpy())
 
 
-@pytest.mark.parametrize("shape", [(8, 64, 128, 10), (2, 5, 7, 3), (1, 1, 1, 10)])
+# the served head's shape, odd W (2W not a multiple of 4, rows off 4 bytes),
+# one class, 19 classes, one pixel, and 256 classes over a wide row (the
+# kernel splits the row into column segments)
+UPSAMPLE_SHAPES = [(8, 64, 128, 10), (2, 5, 7, 3), (1, 1, 1, 10), (2, 6, 9, 19),
+                   (3, 4, 5, 1), (1, 3, 70, 256)]
+
+
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
 def test_upsample2x_argmax_matches_plain(card, shape):
     logits = _randn(shape, 1)
     got = kernels.upsample2x_argmax(logits)
     want = kernels.upsample2x_argmax_plain(logits)
     assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2])
-    up = upsample2x_bilinear(logits, align_corners=True).topk(2, dim=-1).values
-    near = (up[..., 0] - up[..., 1]) < NEAR_TIE
-    assert not bool(((got != want) & ~near).any())
+    # the same taps, the same rounding order and the same strict '>'
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 128, 10), (2, 6, 9, 19)])
+def test_upsample2x_argmax_repeats_bit_equal(card, shape):
+    logits = _randn(shape, 2)
+    before = kernels.launches["upsample2x_argmax"]
+    first = kernels.upsample2x_argmax(logits)
+    assert all(torch.equal(first, kernels.upsample2x_argmax(logits)) for _ in range(3))
+    assert kernels.launches["upsample2x_argmax"] == before + 4
 
 
 UPCONCAT_CASES = [
@@ -251,14 +266,24 @@ def test_lovasz_wrappers_reject_what_the_kernels_do_not_take(card):
 
 
 # the encoder's 17 blocks at batch 8, 256x128: (H, W, Cin, hidden, Cout,
-# stride, use_res, expand), then odd H at stride 2, W off the 8-wide tile, no
-# expand at stride 2, and one output pixel
-MBCONV_SHAPES = [
-    (s.h, s.w, s.cin, s.hidden, s.cout, s.stride, s.use_res, s.expand)
-    for s in inverted_residual_shapes(MobileNetV2Encoder(), 128, 256)
+# stride, use_res, expand, batch), then odd H at stride 2, W off the 8-wide
+# tile, no expand at stride 2, one output pixel, batch 1 at a 4x8 image with
+# Cout 320, Cin and hidden off 8 (at both strides), a Cin staged in two
+# pieces, and a Cout split over CTAs
+MBCONV_CASES = [
+    (f"block{i + 1}", (s.h, s.w, s.cin, s.hidden, s.cout, s.stride, s.use_res, s.expand, 8))
+    for i, s in enumerate(inverted_residual_shapes(MobileNetV2Encoder(), 128, 256))
 ] + [
-    (9, 13, 16, 96, 24, 2, False, True), (7, 11, 24, 144, 24, 1, True, True),
-    (5, 5, 16, 16, 8, 2, False, False), (2, 2, 40, 40, 3, 2, False, False),
+    ("odd-h-s2", (9, 13, 16, 96, 24, 2, False, True, 8)),
+    ("ragged-w", (7, 11, 24, 144, 24, 1, True, True, 8)),
+    ("t1-s2", (5, 5, 16, 16, 8, 2, False, False, 8)),
+    ("one-pixel", (2, 2, 40, 40, 3, 2, False, False, 8)),
+    ("batch1-4x8-cout320", (4, 8, 160, 960, 320, 1, False, True, 1)),
+    ("cin-hidden-off-8", (9, 10, 13, 78, 21, 1, False, True, 2)),
+    ("cin-hidden-off-8-s2", (11, 7, 20, 60, 12, 2, False, True, 3)),
+    ("t1-hidden-off-8", (6, 9, 12, 12, 12, 1, True, False, 2)),
+    ("cin-in-pieces", (4, 8, 400, 64, 40, 1, False, True, 2)),
+    ("cout-split", (8, 16, 32, 64, 200, 1, False, True, 2)),
 ]
 
 
@@ -271,40 +296,58 @@ def _mbconv_args(h, w, cin, hidden, cout, seed, batch=8, expand=True):
             r((hidden, cout), 7, 0.1), pos(cout, 8), r((cout,), 9, 0.1))
 
 
-@pytest.mark.parametrize("case", MBCONV_SHAPES,
-                         ids=[f"block{i + 1}" for i in range(17)] + ["odd-h-s2", "ragged-w",
-                                                                     "t1-s2", "one-pixel"])
+@pytest.mark.parametrize("case", [c for _, c in MBCONV_CASES], ids=[i for i, _ in MBCONV_CASES])
 def test_fused_inverted_residual_matches_plain(card, case):
     from tpuseg_torch.ops.mbconv import fused_inverted_residual, mbconv_plain
 
-    h, w, cin, hidden, cout, stride, use_res, expand = case
-    args = _mbconv_args(h, w, cin, hidden, cout, MBCONV_SHAPES.index(case), expand=expand)
+    h, w, cin, hidden, cout, stride, use_res, expand, batch = case
+    seed = [c for _, c in MBCONV_CASES].index(case)
+    args = _mbconv_args(h, w, cin, hidden, cout, seed, batch=batch, expand=expand)
     before = kernels.launches["fused_inverted_residual"]
     got = fused_inverted_residual(*args, stride=stride, use_res=use_res)
     again = fused_inverted_residual(*args, stride=stride, use_res=use_res)
     want = mbconv_plain(*args, stride=stride, use_res=use_res)
     assert kernels.launches["fused_inverted_residual"] == before + 2
-    assert got.shape == (8, h // stride, w // stride, cout)
+    assert got.shape == (batch, h // stride, w // stride, cout)
     assert torch.equal(got, again)            # the splits are summed in a fixed order
     # fp32 sums of up to 960 terms taken in another order than cuBLAS's
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("b,h,w,hidden,stride", [
-    (8, 64, 128, 32, 1), (8, 4, 8, 960, 1), (8, 8, 16, 384, 1), (1, 2, 2, 2000, 2),
-    (2, 3, 5, 33, 1)])
-def test_mbconv_plan_covers_the_hidden_channels_in_at_most_six_chunks(card, b, h, w, hidden,
-                                                                      stride):
+@pytest.mark.parametrize("block", [15, 16, 17])
+def test_fused_inverted_residual_repeats_bit_equal_where_the_hidden_channels_split(card,
+                                                                                  block):
+    from tpuseg_torch.ops.mbconv import fused_inverted_residual, mbconv_plan
+
+    h, w, cin, hidden, cout, stride, use_res, expand, batch = MBCONV_CASES[block - 1][1]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert mbconv_plan(batch, h, w, cin, hidden, cout, stride, sms)[0] > 1
+    args = _mbconv_args(h, w, cin, hidden, cout, 40 + block, batch=batch)
+    first = fused_inverted_residual(*args, stride=stride, use_res=use_res)
+    for _ in range(4):
+        assert torch.equal(first, fused_inverted_residual(*args, stride=stride, use_res=use_res))
+
+
+@pytest.mark.parametrize("b,h,w,cin,hidden,cout,stride", [
+    (8, 64, 128, 32, 32, 16, 1), (8, 4, 8, 160, 960, 160, 1), (8, 8, 16, 96, 576, 96, 1),
+    (8, 16, 32, 32, 192, 32, 1), (1, 2, 2, 40, 2000, 8, 2), (2, 3, 5, 16, 33, 16, 1)])
+def test_mbconv_plan_splits_the_hidden_channels_only_where_the_tiles_are_few(
+        card, b, h, w, cin, hidden, cout, stride):
     from tpuseg_torch.ops.mbconv import mbconv_plan
 
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    splits, per = mbconv_plan(b, h, w, hidden, stride, sms)
-    nchunks = -(-hidden // 32)
-    assert 1 <= per <= 6 and (splits - 1) * per < nchunks <= splits * per
+    splits, per = mbconv_plan(b, h, w, cin, hidden, cout, stride, sms)
+    # one cluster of at most 16 CTAs, each with a multiple of 8 channels
+    assert 1 <= splits <= 16 and per % 8 == 0 and (splits - 1) * per < hidden <= splits * per
     if (b, h, w, hidden) == (8, 64, 128, 32):
-        assert (splits, per) == (1, 1)           # block 1: many tiles, one chunk
+        assert splits == 1                       # block 1: 512 tiles fill the card
     if (b, h, w, hidden) == (8, 4, 8, 960):
-        assert splits > 5                         # blocks 15-17: the hidden split widely
+        assert splits >= 8                       # blocks 15-17: one 4x8 tile per image
+    if (b, h, w, hidden) == (8, 8, 16, 576):
+        assert splits > 1                        # blocks 12-13: two tiles per image
+    if splits > 1:
+        tiles = b * -(-(h // stride) // 8) * -(-(w // stride) // 16)
+        assert tiles <= 2 * sms                  # split only where the tiles are few
 
 
 def test_fused_inverted_residual_refuses_what_the_kernel_does_not_take(card):
@@ -312,7 +355,7 @@ def test_fused_inverted_residual_refuses_what_the_kernel_does_not_take(card):
 
     args = _mbconv_args(8, 8, 16, 96, 24, 30, batch=1)
     with pytest.raises(RuntimeError, match="plan"):
-        mbconv_plan(1, 8, 8, 96, 3, 132)
+        mbconv_plan(1, 8, 8, 16, 96, 24, 3, 132)
     with pytest.raises(TypeError):
         fused_inverted_residual(args[0].double(), *args[1:])
     with pytest.raises(ValueError, match="contiguous"):

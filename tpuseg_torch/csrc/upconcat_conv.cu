@@ -77,6 +77,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int TH = 8, TW = 16;                     // output pixel tile (BM = 128)
@@ -110,46 +112,6 @@ __device__ __forceinline__ void half_pixel_taps(int g, int n, int* lo, int* hi,
 
 __device__ __forceinline__ float lerp_rn(float a, float wa, float b, float wb) {
   return __fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16- or 4-byte global -> shared copy; zero-fills the destination when !valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// v = big + small: big = tf32(v), rounded to nearest; small = v - big is
-// exact in fp32 and goes to the tensor core as it is, which reads its top
-// 19 bits (a TF32 truncation: 2^-21 of v at most, with no bias, as small's
-// sign is independent of v's)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(v));
-  small = __float_as_uint(v - __uint_as_float(big));
-}
-
-// d += a (16x8, row) * b (8x8, col), tf32 in, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int BN>

@@ -7,8 +7,9 @@ Each source in ``tpuseg_torch/csrc`` is compiled on its own, for Hopper
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 The libraries go to ``build/kernels/`` at the repository root (git-ignored),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. ``build`` starts one nvcc per source, all
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. ``build`` starts one nvcc per source, all
 at once, and waits for them together. Nothing here runs at import: the
 first kernel call (or ``build``) compiles.
 """
@@ -60,7 +61,8 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -21,8 +21,16 @@ launch reports an error, and adds one to ``launches[<wrapper name>]``.
 
 The designs, and what bounds each on the H100 (the sources say more):
 
-- ``argmax_colorize`` and ``upsample2x_argmax``: one thread per pixel;
-  bound by the bytes of the logits.
+- ``argmax_colorize``: one thread per pixel; bound by the bytes of the
+  logits.
+- ``upsample2x_argmax``: one CTA per image and band of 4 source rows
+  stages the 6 source rows the band needs into shared memory (16-byte
+  ``cp.async``, one barrier). A thread owns one source pixel and its 2x2
+  output block (the x2 taps' fixed shape): it lerps its column in H once
+  per output row, takes its neighbours' columns by warp shuffles, lerps in
+  W and stores two 16-bit words. Bound by the bytes of the logits (0.00086
+  ms at [8,64,128,10]), which lie below the cost of one launch; at that
+  size the instructions per output pixel set the pace.
 - ``fused_upsample_concat_conv``: an implicit GEMM (M = output pixels,
   N = Cout, K = 9 (Cs + Cx)) on the tensor cores, exact to fp32 through the
   3xTF32 split (big*big + big*small + small*big in ``mma.sync`` tf32). The
@@ -46,7 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpuseg_torch.ops.resize import upsample2x_bilinear
+from tpuseg_torch.ops.resize import _bilinear_taps, upsample2x_bilinear
 
 # kernel launches per wrapper since the last reset_launches()
 launches: Dict[str, int] = {
@@ -68,14 +76,14 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C symbol, argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "argmax_colorize": ("tpuseg_argmax_colorize", [_P, _P, _P, _P, _LL, _I, _P]),
-    "upsample2x_argmax": ("tpuseg_upsample2x_argmax", [_P, _P, _I, _I, _I, _I, _P]),
+    "upsample2x_argmax": ("tpuseg_upsample2x_argmax", [_P] * 4 + [_I] * 4 + [_P]),
     "upconcat_conv": ("tpuseg_upconcat_conv", [_P] * 6 + [_I] * 7 + [_P]),
     "upconcat_plan": ("tpuseg_upconcat_plan", [_I] * 7 + [_P, _P]),
     "lovasz_histograms": ("tpuseg_lovasz_histograms", [_P, _P, _P, _P, _I, _LL, _I, _P]),
     "lovasz_hist_plan": ("tpuseg_lovasz_hist_plan", [_I, _LL, _I, _P]),
     "lovasz_lookup": ("tpuseg_lovasz_lookup", [_P, _P, _P, _I, _LL, _I, _P]),
-    "mbconv": ("tpuseg_mbconv", [_P] * 12 + [_I] * 9 + [_P]),
-    "mbconv_plan": ("tpuseg_mbconv_plan", [_I] * 6 + [_P, _P]),
+    "mbconv": ("tpuseg_mbconv", [_P] * 11 + [_I] * 9 + [_P]),
+    "mbconv_plan": ("tpuseg_mbconv_plan", [_I] * 9 + [_P, _P]),
 }
 # symbols that live in another source's library
 _LIBRARY = {"mbconv_plan": "mbconv", "upconcat_plan": "upconcat_conv",
@@ -192,6 +200,18 @@ def upsample2x_argmax_plain(logits: torch.Tensor) -> torch.Tensor:
     return up.argmax(dim=-1).to(torch.uint8)
 
 
+@functools.lru_cache(maxsize=None)
+def _ac_true_tap_table(n: int, device: torch.device) -> torch.Tensor:
+    """int32 [2n, 4]: {lo, hi, float32 bits of 1 - frac, of frac} of each
+    output index of the x2 align_corners=True upsample of n inputs: the
+    plain version's own taps, made once per size and device."""
+    lo, hi, frac = _bilinear_taps(n, 2 * n, True)
+    table = np.stack([lo, hi, (np.float32(1.0) - frac).view(np.int32), frac.view(np.int32)],
+                     axis=1).astype(np.int32)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(table)).to(device)
+
+
 def upsample2x_argmax(logits: torch.Tensor) -> torch.Tensor:
     """argmax over C of the exact x2 align_corners=True bilinear upsample.
 
@@ -206,8 +226,9 @@ def upsample2x_argmax(logits: torch.Tensor) -> torch.Tensor:
     _require_f32_contiguous(logits=logits)
     b, h, w, c = logits.shape
     out = torch.empty((b, 2 * h, 2 * w), dtype=torch.uint8, device=logits.device)
-    _launch("upsample2x_argmax", logits.device, logits.data_ptr(), out.data_ptr(),
-            b, h, w, c)
+    rows, cols = (_ac_true_tap_table(n, logits.device) for n in (h, w))
+    _launch("upsample2x_argmax", logits.device, logits.data_ptr(), rows.data_ptr(),
+            cols.data_ptr(), out.data_ptr(), b, h, w, c)
     launches["upsample2x_argmax"] += 1
     return out
 

@@ -21,6 +21,22 @@ runs them through XLA. ``fold_inverted_residual`` turns a port
 ``InvertedResidual`` into this function's arguments, so the kernel can be
 held against the model's own blocks.
 
+The kernel (``csrc/mbconv.cu`` says more): each CTA takes a tile of
+output pixels (8x16; 4x16 or 4x8 for the small images), stages the x patch
+once, expands only the patch's pixels inside the image (a pad pixel is a
+zero, never computed), and streams the hidden channels through in chunks
+of 32: expand and project on the tensor cores, exact to fp32 through
+3xTF32 ``mma.sync``, the depthwise 3x3 on the CUDA cores, the next chunk's
+weights in flight (bulk copies for long spans, ``cp.async`` for short
+ones). Where the tiles are few, the hidden
+channels are split over a thread-block cluster of up to 16 CTAs that sum
+their partial products in rank order through distributed shared memory
+(``mbconv_plan``, the kernel's own rule, asks the occupancy API what the
+card runs at once): deterministic, with no scratch in device memory. Bound
+by operations on that route, 3 TF32 products per 1x1 term at 495 TFLOP/s
+plus the depthwise at 67 TFLOP/s: 0.022 ms for the encoder's 17 blocks at
+batch 8 and 256x128 (0.044 ms in exact fp32 on the CUDA cores).
+
 Dispatch goes by the tensor's device, as in ``ops/kernels.py``: a CPU
 tensor runs the plain version; a CUDA tensor launches the kernel or raises.
 There is no shape fallback: the kernel masks its own ragged edges. Each
@@ -98,14 +114,16 @@ def mbconv_plain(x, we, se, be, wd, sd, bd, wp, sp, bp, stride: int = 1,
     return out.to(x.dtype)
 
 
-def mbconv_plan(b: int, h: int, w: int, hidden: int, stride: int,
-                sms: int) -> Tuple[int, int]:
-    """(splits, chunks per split): how the kernel splits the hidden
-    channels of one output tile over CUDA blocks on a card with ``sms``
-    SMs. The rule is the kernel's own (``tpuseg_mbconv_plan``)."""
+def mbconv_plan(b: int, h: int, w: int, cin: int, hidden: int, cout: int, stride: int,
+                sms: int, expand: bool = True) -> Tuple[int, int]:
+    """(splits, channels per split): how many CTAs (one thread-block
+    cluster) share the hidden channels of one output tile on the current
+    card (with ``sms`` SMs), and how many hidden channels each takes (a
+    multiple of 8). The rule is the kernel's own (``tpuseg_mbconv_plan``),
+    which asks the occupancy API how many CTAs and clusters run at once."""
     splits, per = ctypes.c_int(), ctypes.c_int()
-    rc = _c_fn("mbconv_plan")(b, h, w, hidden, stride, sms, ctypes.byref(splits),
-                              ctypes.byref(per))
+    rc = _c_fn("mbconv_plan")(b, h, w, cin, hidden, cout, stride, int(expand), sms,
+                              ctypes.byref(splits), ctypes.byref(per))
     if rc != 0:
         raise RuntimeError(f"mbconv plan failed: CUDA error {rc}")
     return splits.value, per.value
@@ -147,7 +165,7 @@ def fused_inverted_residual(x: torch.Tensor, we: Optional[torch.Tensor], se, be,
     if x.dtype == torch.bfloat16:
         raise NotImplementedError(
             "bfloat16 activations are not ported yet (ROADMAP.md, What is "
-            "left item 7: bf16)")
+            "left item 4: bf16)")
     tensors = dict(x=x, wd=wd, sd=sd, bd=bd, wp=wp, sp=sp, bp=bp)
     if we is not None:
         tensors.update(we=we, se=se, be=be)
@@ -157,13 +175,9 @@ def fused_inverted_residual(x: torch.Tensor, we: Optional[torch.Tensor], se, be,
     ho, wo = h // stride, w // stride
     out = torch.empty((b, ho, wo, cout), dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, _ = mbconv_plan(b, h, w, hidden, stride, sms)
-    partial = (torch.empty((splits, b, ho, wo, cout), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     _launch("mbconv", x.device, x.data_ptr(), ptr(we), ptr(se), ptr(be), wd.data_ptr(),
             sd.data_ptr(), bd.data_ptr(), wp.data_ptr(), sp.data_ptr(), bp.data_ptr(),
-            out.data_ptr(), ptr(partial), b, h, w, cin, hidden, cout, stride,
-            int(use_res), sms)
+            out.data_ptr(), b, h, w, cin, hidden, cout, stride, int(use_res), sms)
     launches["fused_inverted_residual"] += 1
     return out
