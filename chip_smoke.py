@@ -43,6 +43,23 @@ printing one JSON line; any failure raises and exits nonzero:
 5d. stem_s2d — the flagship served with and without --model.stem_s2d on
              the same weights (the flag runs the plain stem conv: its JAX
              rewrite is exact), the same class maps;
+5e. serve_options — the Predictor's serving options on the flagship:
+             fetch_pack4 bit-equal to the default route; device_close's
+             low bits bit-equal to the device route and its 0x80 plane to
+             the native library's close of the road mask; preprocess_on_host
+             bit-equal to the default route fed the host-resized frames
+             (its agreement with the device resize reported); use_pallas
+             with fetch_pack4 raises (ROADMAP C1); predict_async with the
+             pinned fetch bit-equal to __call__;
+5f. serve_ab — frames/s and p50 of six served routes (plain decoder with
+             colorize off and on, the kernel route; the nearest upscale on
+             the host and on the device), two rounds in turns;
+5g. video  — VideoPipeline on 160 seeded 360x640 frames through the kernel
+             route at depth 1 and 3: the stats line, the launches, and
+             every frame's class map bit-equal to Predictor.__call__;
+5h. http   — the port's HTTP server in-process at --max_batch 1 and 8: 200
+             raw-codec requests from 8 client threads, each response
+             against the direct Predictor, requests/s, p50 and p99;
 6. train   — the full-width mobilenetv2_unet trained through
              ``tpuseg_torch.main`` with --train.loss=lovasz (256 bins, batch
              8, 256x128, Adam 1.5e-4, augment on, synthetic scenes): the
@@ -52,9 +69,15 @@ printing one JSON line; any failure raises and exits nonzero:
              against one built on the plain versions, under deterministic
              algorithms: gradients and parameters bit-equal.
 
+The serving phases run as on a host without cv2, the path the port is
+built for: a meta-path finder refuses cv2 for the whole run (the device
+line says whether the host has it), so preprocessing runs on the numpy
+INTER_LINEAR replica and the postprocess on the native library, with car
+boxes off.
+
 Then the kernels summary line, nvidia-smi's line, and, last, the result
 line {"ok": true, "device": {...}}. A kernel's ``launches`` there are its
-launches on the serving or training path; fused_inverted_residual runs on
+launches on the serving (serve and video phases) or training path; fused_inverted_residual runs on
 no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
 result. fp32 comparisons run with TF32 off for both cuDNN and matmul.
@@ -62,6 +85,8 @@ result. fp32 comparisons run with TF32 off for both cuDNN and matmul.
 
 from __future__ import annotations
 
+import importlib.abc
+import importlib.util
 import json
 import math
 import os
@@ -106,6 +131,7 @@ L2_BYTES = 50 * 2**20
 
 BATCH, MODEL_HW, FRAME_HW, CLASSES, SEED = 8, (128, 256), (360, 640), 10, 0
 SERVE_BATCHES, TIMED_BATCHES = 3, 20
+VIDEO_FRAMES, HTTP_REQUESTS, HTTP_CLIENTS = 160, 200, 8
 NEAR_TIE = 1e-5           # logit margin under which two argmax picks may differ
 UPCONCAT_ATOL = UPCONCAT_RTOL = 1e-4   # fp32 sums of up to 12,096 terms, other order
 
@@ -155,6 +181,17 @@ FAMILIES = ("mobilenetv2_fpn", "mobilenetv2_deeplab", "unet", "light_unet")
 # the logits are expected bit-equal; 1e-6 leaves room for cuDNN choosing
 # another algorithm for the second model
 S2D_ATOL = S2D_RTOL = 1e-6
+
+
+
+def cv2_installed() -> bool:
+    """Whether the host has cv2 at all (asked before the finder goes in)."""
+    try:
+        return importlib.util.find_spec("cv2") is not None
+    except ImportError:
+        return False
+
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -214,7 +251,16 @@ def top2_margin(logits: torch.Tensor) -> torch.Tensor:
     return t[..., 0] - t[..., 1]
 
 
-def phase_device():
+class RefuseCv2(importlib.abc.MetaPathFinder):
+    """Refuses ``import cv2``: the run takes the routes of a host without it."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "cv2":
+            raise ImportError("cv2 refused by chip_smoke.py")
+        return None
+
+
+def phase_device(has_cv2: bool):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -222,6 +268,7 @@ def phase_device():
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda,
+            "cv2_installed": has_cv2, "cv2": "refused for this run",
             "nvcc": [ln for ln in subprocess.run(
                 [_build.nvcc_path(), "--version"], capture_output=True, text=True,
                 check=True, timeout=60).stdout.splitlines() if "release" in ln][0]}
@@ -644,6 +691,31 @@ def model_input(pred, frames: np.ndarray) -> torch.Tensor:
                             pred.normalize_std).permute(0, 3, 1, 2)
 
 
+def stages(p, frames):
+    """Median ms of each step of Predictor.__call__, synchronized apart: the
+    upload, the device stage, the fetch, and the host nearest upscale."""
+    out_hw = p.input_hw if p.upscale_on_host else FRAME_HW
+    ms = {"upload": [], "device": [], "fetch": [], "host_upscale": []}
+    for i in range(TIMED_BATCHES):
+        f = frames[i % len(frames)]
+        t0 = time.perf_counter()
+        x = torch.from_numpy(f).to(p.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cls, packed = p._device_forward(x, out_hw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = [t.cpu().numpy() for t in (cls, packed) if t is not None]
+        t3 = time.perf_counter()
+        if p.upscale_on_host:
+            for a in host:
+                resize_nearest_host(a, *FRAME_HW)
+        t4 = time.perf_counter()
+        for k, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            ms[k].append(dt * 1e3)
+    return {k: float(np.median(v)) for k, v in ms.items()}
+
+
 def phase_serve(pth: Path, name: str):
     cfg = load_config(["--model.use_pallas=true", "--model.up_subpixel=false"])
     plain_cfg = load_config(["--model.use_pallas=false", "--model.up_subpixel=false"])
@@ -665,34 +737,13 @@ def phase_serve(pth: Path, name: str):
     if min(agree) < 0.999 or len(distinct) < 2:
         raise AssertionError(f"serve agreement {agree}, classes {sorted(distinct)}")
 
-    def stages(p):
-        """Median ms of each step of Predictor.__call__, synchronized apart."""
-        ms = {"upload": [], "device": [], "fetch": [], "host_upscale": []}
-        for i in range(TIMED_BATCHES):
-            f = frames[i % SERVE_BATCHES]
-            t0 = time.perf_counter()
-            x = torch.from_numpy(f).to(p.device)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            cls, packed = p._device_forward(x, p.input_hw)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            host = [t.cpu().numpy() for t in (cls, packed) if t is not None]
-            t3 = time.perf_counter()
-            for a in host:
-                resize_nearest_host(a, *FRAME_HW)
-            t4 = time.perf_counter()
-            for k, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                ms[k].append(dt * 1e3)
-        return {k: float(np.median(v)) for k, v in ms.items()}
-
     plain_colorize = Predictor(plain_cfg.model, checkpoint=str(pth), input_hw=MODEL_HW,
                                batch_size=BATCH, colorize_on_device=True)
     rows = {}
     for label, p in (("kernels", pred), ("plain_decoder_colorize", plain_colorize),
                      ("plain_decoder_no_colorize", ref)):
         fps, p50 = timed(p, frames)
-        rows[label] = {"frames_per_s": fps, "p50_batch_ms": p50, "stages_ms": stages(p)}
+        rows[label] = {"frames_per_s": fps, "p50_batch_ms": p50, "stages_ms": stages(p, frames)}
     emit({"phase": "serve", "card": name, "launches": counts, "agreement_min": min(agree),
           "classes_seen": sorted(distinct), "batch": BATCH, "frame_hw": list(FRAME_HW),
           "model_hw": list(MODEL_HW), **rows})
@@ -827,6 +878,302 @@ def phase_stem_s2d(pth: Path, frames):
         raise AssertionError(f"stem_s2d: logits off by {float(diff.max())}, agreement {agree}")
     emit({"phase": "stem_s2d", "launches": counts, "agreement_min": min(agree),
           "max_abs_logit_diff": float(diff.max()), "max_abs_logit": float(b.abs().max())})
+
+
+KERNEL_FLAGS = ["--model.use_pallas=true", "--model.up_subpixel=false"]
+PLAIN_FLAGS = ["--model.use_pallas=false", "--model.up_subpixel=false"]
+
+
+def flagship(pth: Path, flags, **kw) -> Predictor:
+    return Predictor(load_config(flags).model, checkpoint=str(pth), input_hw=MODEL_HW,
+                     batch_size=BATCH, **kw)
+
+
+def device_margin(p: Predictor, frames: np.ndarray, host_resized: bool = False) -> np.ndarray:
+    """The top-two logit margin of ``p``'s model on the input it builds for
+    ``frames`` (device or host resize), nearest-upscaled to the frame size."""
+    x = p._maybe_host_resize(frames) if host_resized else frames
+    x = torch.from_numpy(np.ascontiguousarray(x)).cuda().float()
+    if tuple(x.shape[1:3]) != MODEL_HW:
+        x = resize_bilinear(x, *MODEL_HW)
+    x = normalize_images(x, p.normalize_mean, p.normalize_std).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        margin = top2_margin(p.model(x).permute(0, 2, 3, 1)).cpu().numpy()
+    return resize_nearest_host(margin, frames.shape[1], frames.shape[2])
+
+
+def phase_serve_options(pth: Path, frames):
+    """The Predictor's serving options on the flagship, each against the
+    route it must equal."""
+    from tpuseg_torch.infer.postprocess import ROAD_CLASS
+    from tpuseg_torch.infer.predictor import host_resize_linear
+    from tpuseg_torch.infer.video import _PinnedFetch
+    from tpuseg_torch.ops import native_post
+
+    out = {"phase": "serve_options"}
+    plain = flagship(pth, PLAIN_FLAGS)
+    want = [plain(f) for f in frames]
+
+    pack4 = flagship(pth, PLAIN_FLAGS, fetch_pack4=True)
+    if tuple(pack4.predict_async(frames[0]).shape) != (BATCH, MODEL_HW[0], MODEL_HW[1] // 2):
+        raise AssertionError("fetch_pack4 did not fetch nibble pairs")
+    if not all(np.array_equal(pack4(f), w) for f, w in zip(frames, want)):
+        raise AssertionError("fetch_pack4 class maps differ from the default route")
+    out["fetch_pack4"] = {"bit_equal": True}
+
+    device_up = flagship(pth, PLAIN_FLAGS, upscale_on_host=False)
+    close = flagship(pth, PLAIN_FLAGS, upscale_on_host=False, device_close=True)
+    road_px = closed_px = 0
+    for f in frames:
+        got, ref = close(f), device_up(f)
+        if not np.array_equal(got & 0x7F, ref):
+            raise AssertionError("device_close: classes & 0x7F differ from the device route")
+        road = ((ref == ROAD_CLASS).astype(np.uint8) * 255)
+        host_close = np.stack([native_post.morph_close(r, 5) == 255 for r in road])
+        if not np.array_equal(got >= 0x80, host_close):
+            raise AssertionError("device_close: the 0x80 plane differs from the host close")
+        road_px += int((ref == ROAD_CLASS).sum())
+        closed_px += int(host_close.sum())
+    out["device_close"] = {"bit_equal": True, "road_pixels": road_px, "closed_pixels": closed_px}
+
+    pre = flagship(pth, PLAIN_FLAGS, preprocess_on_host=True)
+    agree, agree_confident = [], []
+    for f, w in zip(frames, want):
+        got = pre(f)
+        # the route is the default one fed the host-resized frames
+        ref = resize_nearest_host(plain(host_resize_linear(f, *MODEL_HW)), *FRAME_HW)
+        if not np.array_equal(got, ref):
+            raise AssertionError("preprocess_on_host differs from the model-size-frame route")
+        confident = device_margin(plain, f) > 1e-3
+        agree.append(float((got == w).mean()))
+        agree_confident.append(float((got == w)[confident].mean()))
+    out["preprocess_on_host"] = {
+        "route": pre.preprocess_route, "bit_equal_to_host_resized_default_route": True,
+        "agreement_with_device_resize": agree,
+        "agreement_with_device_resize_where_margin_gt_1e-3": agree_confident}
+
+    try:
+        flagship(pth, KERNEL_FLAGS, fetch_pack4=True)
+    except ValueError as e:
+        out["use_pallas_fetch_pack4"] = f"raises: {e}"
+    else:
+        raise AssertionError("use_pallas with fetch_pack4 did not raise (ROADMAP C1)")
+
+    kern = flagship(pth, KERNEL_FLAGS)
+    fetch = _PinnedFetch(2)
+    for f in frames:
+        outs = kern.predict_async(f)
+        if not all(t.is_cuda for t in outs):
+            raise AssertionError("predict_async left the device")
+        cls, col = kern.finish_host(*_PinnedFetch.wait(fetch.start(outs)), *FRAME_HW)
+        ref_cls, ref_col = kern(f)
+        if not (np.array_equal(cls, ref_cls) and np.array_equal(col, ref_col)):
+            raise AssertionError("predict_async + pinned fetch differs from __call__")
+    out["predict_async_pinned_fetch"] = {"bit_equal": True}
+    emit(out)
+
+
+def phase_serve_ab(pth: Path, frames):
+    """Frames/s and p50 of the served flagship by route: the plain decoder
+    with colorize off and on, and the kernel route (use_pallas, colorize
+    forced on), each with the nearest upscale on the host and on the
+    device; two rounds in turns (forward order, then reverse)."""
+    routes = {}
+    for dec, flags in (("plain", PLAIN_FLAGS), ("kernels", KERNEL_FLAGS)):
+        for colorize in ((False, True) if dec == "plain" else (True,)):
+            for host in (True, False):
+                label = (f"{dec}_decoder_colorize_{'on' if colorize else 'off'}_"
+                         f"upscale_{'host' if host else 'device'}")
+                routes[label] = flagship(pth, flags, colorize_on_device=colorize,
+                                         upscale_on_host=host)
+    rows = {k: [] for k in routes}
+    for order in (list(routes), list(routes)[::-1]):
+        for label in order:
+            fps, p50 = timed(routes[label], frames)
+            rows[label].append({"frames_per_s": fps, "p50_batch_ms": p50,
+                                "stages_ms": stages(routes[label], frames)})
+    mean_fps = {k: float(np.mean([r["frames_per_s"] for r in v])) for k, v in rows.items()}
+    emit({"phase": "serve_ab", "batch": BATCH, "frame_hw": list(FRAME_HW),
+          "batches": TIMED_BATCHES, "routes": rows, "mean_frames_per_s": mean_fps,
+          "fastest": max(mean_fps, key=mean_fps.get)})
+
+
+class FrameCapture:
+    """An in-memory capture with cv2.VideoCapture's read() and get()."""
+
+    def __init__(self, frames: np.ndarray):
+        self.frames, self.i = frames, 0
+
+    def read(self):
+        if self.i >= len(self.frames):
+            return False, None
+        self.i += 1
+        return True, self.frames[self.i - 1]
+
+    def get(self, prop):
+        return {3: float(FRAME_HW[1]), 4: float(FRAME_HW[0]), 5: 30.0}[prop]
+
+
+def phase_video(pth: Path) -> dict:
+    """VideoPipeline on VIDEO_FRAMES seeded BGR frames through the kernel
+    route at depth 1 and 3: stats, launches, and every frame's class map
+    against Predictor.__call__ on the same batch."""
+    from tpuseg_torch.infer import postprocess, video
+    from tpuseg_torch.ops import native_post
+
+    frames = np.random.RandomState(SEED + 1).randint(0, 256, (VIDEO_FRAMES, *FRAME_HW, 3),
+                                                     np.uint8)
+    pred = flagship(pth, KERNEL_FLAGS)
+    car_boxes = postprocess.cv2_or_none() is not None
+    direct = np.concatenate([pred(np.ascontiguousarray(frames[i:i + BATCH, ..., ::-1]))[0]
+                             for i in range(0, VIDEO_FRAMES, BATCH)])
+    real = video.overlay_predictions
+    seen = []
+
+    def spy(frame, classes, **kw):
+        seen.append(np.array(classes))
+        return real(frame, classes, **kw)
+
+    out = {"phase": "video", "frames_in": VIDEO_FRAMES, "batch": BATCH,
+           "frame_hw": list(FRAME_HW), "car_boxes": car_boxes,
+           "cv2": postprocess.cv2_or_none() is not None,
+           "road_cleanup_route": "cv2" if car_boxes else "native library",
+           "native_library": native_post.library_path(), "depths": {}}
+    launches = {}
+    video.overlay_predictions = spy
+    try:
+        for depth in (1, 3):
+            del seen[:]
+            pipe = video.VideoPipeline(pred, road_cleanup=True, car_boxes=car_boxes,
+                                       pipeline_depth=depth)
+            kernels.reset_launches()
+            stats = pipe._run_capture(FrameCapture(frames))
+            torch.cuda.synchronize()
+            counts = dict(kernels.launches)
+            n_fwd = VIDEO_FRAMES // BATCH + 1           # + the warm-up batch
+            want = {k: 0 for k in counts}
+            want.update(argmax_colorize=n_fwd, fused_upsample_concat_conv=4 * n_fwd)
+            if counts != want:
+                raise AssertionError(f"video launches {counts}, expected {want}")
+            if stats["frames"] != VIDEO_FRAMES or len(seen) != VIDEO_FRAMES:
+                raise AssertionError(f"video: {stats['frames']} frames, {len(seen)} maps")
+            if not np.array_equal(np.stack(seen), direct):
+                raise AssertionError(f"video depth {depth}: class maps differ from __call__")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            out["depths"][str(depth)] = {"stats": stats, "launches": counts,
+                                         "maps_bit_equal_to_call": True}
+    finally:
+        video.overlay_predictions = real
+    out["classes_seen"] = sorted(np.unique(direct).tolist())
+    emit(out)
+    return launches
+
+
+def http_clients(base: str, frames, n: int, clients: int):
+    """``n`` raw-codec /predict requests from ``clients`` threads on
+    keep-alive connections; (latencies in s, masks by request, wall s)."""
+    import http.client
+    import threading
+    from urllib.parse import urlparse
+
+    url = urlparse(base)
+    lat, masks, errors = [None] * n, [None] * n, []
+    h, w = FRAME_HW
+
+    def client(k):
+        conn = http.client.HTTPConnection(url.hostname, url.port, timeout=120)
+        try:
+            for i in range(k, n, clients):
+                body = frames[i % len(frames)].tobytes()
+                t0 = time.perf_counter()
+                conn.request("POST", "/predict?format=raw", body,
+                             {"Content-Type": "application/octet-stream",
+                              "X-Shape": f"{h},{w},3"})
+                r = conn.getresponse()
+                data = r.read()
+                lat[i] = time.perf_counter() - t0
+                if r.status != 200:
+                    raise RuntimeError(f"HTTP {r.status}: {data[:200]!r}")
+                masks[i] = np.frombuffer(data, np.uint8).reshape(h, w)
+        except Exception as e:  # re-raised by the caller
+            errors.append(e)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return lat, masks, wall
+
+
+def phase_http(pth: Path, frames) -> None:
+    """The port's HTTP server in-process on 127.0.0.1:0, raw codec, the
+    flagship as the server builds it, at --max_batch 1 and 8: 200 requests
+    of 360x640 BGR frames from 8 client threads, every response against
+    the direct Predictor on the same frame."""
+    import threading
+    import urllib.request
+
+    from tpuseg_torch.tools import serve
+
+    bgr = [f[..., ::-1].copy() for f in np.concatenate(frames)]
+    out = {"phase": "http", "requests": HTTP_REQUESTS, "clients": HTTP_CLIENTS,
+           "frame_hw": list(FRAME_HW), "codec": "raw", "servers": {}}
+    for max_batch in (1, 8):
+        args = serve.parse_args(["--port", "0", "--checkpoint", str(pth),
+                                 "--max_batch", str(max_batch)])
+        httpd, state = serve.make_server(args)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = "http://%s:%d" % httpd.server_address[:2]
+            kernels.reset_launches()
+            lat, masks, wall = http_clients(base, bgr, HTTP_REQUESTS, HTTP_CLIENTS)
+            counts = dict(kernels.launches)
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=10)
+            state.batcher.close()
+        if health["requests"] != HTTP_REQUESTS:
+            raise AssertionError(f"healthz counts {health['requests']} requests")
+        if (max_batch > 1) != ("batching" in health) or \
+                (max_batch > 1 and health["batching"]["max_batch"] != max_batch):
+            raise AssertionError(f"healthz does not report the batcher: {health}")
+        direct = [state.predictor(np.ascontiguousarray(f[..., ::-1])[None])[0] for f in bgr]
+        differ, near = 0, 0
+        for i, m in enumerate(masks):
+            d = m != direct[i % len(bgr)]
+            if d.any():
+                # another batch size may take other cuDNN algorithms: only
+                # a near-tie of the direct route's logits may flip
+                f = np.ascontiguousarray(bgr[i % len(bgr)][..., ::-1])[None]
+                tie = device_margin(state.predictor, f, host_resized=True)[0] < NEAR_TIE
+                if bool((d & ~tie).any()):
+                    raise AssertionError(f"http max_batch {max_batch}: request {i} differs "
+                                         "from the direct Predictor beyond near-ties")
+                differ += int(d.sum())
+                near += 1
+        lat_ms = np.array(lat) * 1e3
+        out["servers"][str(max_batch)] = {
+            "host_resize_route": state.predictor.preprocess_route,
+            "requests_per_s": HTTP_REQUESTS / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)), "p90_ms": float(np.percentile(lat_ms, 90)),
+            "max_ms": float(lat_ms.max()),
+            "slowest_ms_by_request": {int(i): float(lat_ms[i]) for i in np.argsort(lat_ms)[-5:]},
+            "wall_s": wall, "healthz": health,
+            "launches": counts, "responses_bit_equal": differ == 0,
+            "near_tie_pixels_differing": differ, "requests_with_near_tie_flips": near}
+    emit(out)
 
 
 def phase_train(perf) -> dict:
@@ -998,11 +1345,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    has_cv2 = cv2_installed()
+    sys.meta_path.insert(0, RefuseCv2())
+    if "cv2" in sys.modules:
+        raise AssertionError("cv2 was imported before it could be refused")
     # before cuBLAS starts: the train phase's A/B runs deterministic algorithms
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    info = phase_device()
+    info = phase_device(has_cv2)
     phase_build()
     perf = phase_kernels()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
@@ -1014,10 +1365,17 @@ def main() -> int:
         del pred
         phase_families(Path(tmp), frames)
         phase_stem_s2d(pth, frames)
+        phase_serve_options(pth, frames)
+        phase_serve_ab(pth, frames)
+        video_counts = phase_video(pth)
+        phase_http(pth, frames)
     train_counts = phase_train(perf)
-    launches = {"argmax_colorize": serve_counts["argmax_colorize"],
+    # the serving paths: the serve phase's batches and the video phase's
+    launches = {"argmax_colorize": serve_counts["argmax_colorize"]
+                + video_counts["argmax_colorize"],
                 "upsample2x_argmax": head_counts["upsample2x_argmax"],
-                "fused_upsample_concat_conv": serve_counts["fused_upsample_concat_conv"],
+                "fused_upsample_concat_conv": serve_counts["fused_upsample_concat_conv"]
+                + video_counts["fused_upsample_concat_conv"],
                 "lovasz_histograms": train_counts["lovasz_histograms"],
                 "lovasz_lookup": train_counts["lovasz_lookup"],
                 # no served or training path runs the block kernel, as no JAX

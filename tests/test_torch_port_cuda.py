@@ -364,3 +364,41 @@ def test_fused_inverted_residual_refuses_what_the_kernel_does_not_take(card):
         fused_inverted_residual(args[0].cpu(), *args[1:])
     with pytest.raises(NotImplementedError, match="bf16"):
         fused_inverted_residual(args[0].bfloat16(), *args[1:])
+
+
+@pytest.mark.parametrize("upscale_on_host", [True, False])
+def test_predict_async_with_the_pinned_fetch_equals_call(card, tmp_path, upscale_on_host):
+    from tpuseg_torch.configs import ModelConfig
+    from tpuseg_torch.core.prng import make_generator
+    from tpuseg_torch.core.weights import init_weights
+    from tpuseg_torch.infer.predictor import Predictor
+    from tpuseg_torch.infer.video import _PinnedFetch
+    from tpuseg_torch.models.registry import build_model
+
+    cfg = ModelConfig(use_pallas=True, up_subpixel=False)
+    model = build_model(cfg)
+    init_weights(model, make_generator(0), random_bn=True)
+    torch.save(model.state_dict(), tmp_path / "w.pth")
+    pred = Predictor(cfg, checkpoint=str(tmp_path / "w.pth"), batch_size=2,
+                     upscale_on_host=upscale_on_host)
+    frames = np.random.RandomState(3).randint(0, 256, (2, 180, 320, 3), np.uint8)
+    fetch = _PinnedFetch(2)
+    outs = pred.predict_async(frames)
+    assert all(t.is_cuda for t in outs)
+    handle = fetch.start(outs)
+    assert all(b.is_pinned() for b in handle[0])
+    classes, packed = _PinnedFetch.wait(handle)
+    got_cls, got_col = pred.finish_host(classes, packed, 180, 320)
+    want_cls, want_col = pred(frames)
+    np.testing.assert_array_equal(got_cls, want_cls)
+    np.testing.assert_array_equal(got_col, want_col)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_morph_close_on_the_card_equals_the_cpu(card, k):
+    from tpuseg_torch.ops.morphology import morph_close
+
+    masks = torch.from_numpy(np.random.RandomState(k).rand(3, 360, 640) > 0.6)
+    masks[:, 0, :] = masks[:, :, -1] = True
+    got = morph_close(masks.cuda(), k).cpu()
+    assert torch.equal(got, morph_close(masks, k))

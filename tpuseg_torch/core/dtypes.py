@@ -1,7 +1,7 @@
 """Dtype policy and device resolution.
 
 Parameters are always fp32. This slice computes in fp32 only (the parity
-configuration); ``compute_dtype="bfloat16"`` is queued in ROADMAP.md.
+configuration); ``compute_dtype="bfloat16"`` is queued in ROADMAP.md (A15).
 
 ``resolve_device`` is the one place an entry point picks its device: the
 card unless the caller asks for the CPU, and an error — never a quiet CPU
@@ -21,8 +21,8 @@ def torch_dtype(compute_dtype: str) -> torch.dtype:
         return torch.float32
     if compute_dtype == "bfloat16":
         raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, queue "
-            "B: bf16)"
+            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md, A15: "
+            "bf16)"
         )
     raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
 

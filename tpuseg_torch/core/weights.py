@@ -139,8 +139,8 @@ def state_dict_from_flax(variables: Mapping,
     the stem's own kernel, so it needs nothing here."""
     if "quant" in variables:
         raise NotImplementedError(
-            "int8 'quant' variables are not ported yet (ROADMAP.md, queue "
-            "B: int8/QAT)"
+            "int8 'quant' variables are not ported yet (ROADMAP.md, A11 + "
+            "A12: QAT, int8 export)"
         )
     params, stats = variables["params"], variables["batch_stats"]
     if "unet" in params:                      # LightUNet

@@ -14,14 +14,33 @@ The nearest upscale back to the frame size runs on the host by default
 ``resize_nearest`` — no cv2 — so only model-size maps cross to the host;
 ``upscale_on_host=False`` runs ``resize_nearest`` on the device instead.
 
+The serving options of the JAX Predictor:
+
+- ``preprocess_on_host``: the model-size downscale runs on the host on the
+  uint8 frames, with cv2 INTER_LINEAR where cv2 imports and its numpy
+  replica ``resize_linear_u8_host`` (bit-equal) where it does not;
+  ``preprocess_route`` says which;
+- ``device_close``: the 5x5 road close (``ops/morphology.py``) runs on the
+  device at frame resolution and is packed into bit 0x80 of the class map;
+- ``fetch_pack4``: two 4-bit class ids per fetched byte, unpacked on the
+  host by ``unpack4_host``;
+- ``predict_async``: dispatch without a sync, returning the device tensors
+  (the VideoPipeline's hook).
+
+One guard differs on purpose from the JAX package (ROADMAP C1): fetch_pack4
+is checked against the effective colorize flag, so ``use_pallas`` (which
+forces colorize on) with ``fetch_pack4`` raises here, where the JAX package
+goes on and unpacks ids that were never packed.
+
 Every family of the registry serves through it, the model built from
 ``model_cfg``; ``light_unet``'s one output channel gives class 0 at every
 pixel, as the JAX Predictor's argmax does.
 
 Checkpoints: ``""`` gives a seeded init, a path ending in ``.pth`` is a
-state_dict (reference key names; flax's module names for FPN and DeepLab). Not ported yet, each raising NotImplementedError with
-its ROADMAP.md item: Orbax directories, ``artifact``, ``mesh``,
-``preprocess_on_host``, ``device_close``, ``fetch_pack4`` and int8 ``quant``.
+state_dict (reference key names; flax's module names for FPN and DeepLab).
+Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
+Orbax directories (A4), ``artifact`` (A12), ``mesh`` (A13) and int8
+``quant`` (A11/A12).
 """
 
 from __future__ import annotations
@@ -36,15 +55,40 @@ from tpuseg_torch.configs import ModelConfig
 from tpuseg_torch.core.dtypes import resolve_device
 from tpuseg_torch.data.augment import normalize_images
 from tpuseg_torch.data.class_maps import COLOR_MAP_BGR, IMAGENET_MEAN, IMAGENET_STD
+from tpuseg_torch.infer.postprocess import ROAD_CLASS, cv2_or_none
 from tpuseg_torch.models.registry import build_model, validate_input_size
 from tpuseg_torch.ops.kernels import argmax_colorize
-from tpuseg_torch.ops.resize import resize_bilinear, resize_nearest, resize_nearest_host
+from tpuseg_torch.ops.morphology import morph_close
+from tpuseg_torch.ops.resize import (resize_bilinear, resize_linear_u8_host, resize_nearest,
+                                     resize_nearest_host)
 
 StateDict = Dict[str, torch.Tensor]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
+
+
+def unpack4_host(packed: np.ndarray) -> np.ndarray:
+    """Inverse of the device-side fetch_pack4 nibble pack: [B, h, w/2]
+    uint8 -> [B, h, w] class ids (high nibble = even column)."""
+    b, h, wp = packed.shape
+    out = np.empty((b, h, wp * 2), np.uint8)
+    out[..., 0::2] = packed >> 4
+    out[..., 1::2] = packed & 0x0F
+    return out
+
+
+def host_resize_linear(frames: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2 INTER_LINEAR downscale of uint8 [B, H, W, C] frames: cv2 where it
+    imports, its bit-equal numpy replica where it does not."""
+    cv2 = cv2_or_none()
+    if cv2 is None:
+        return resize_linear_u8_host(frames, out_h, out_w)
+    out = np.empty((frames.shape[0], out_h, out_w, frames.shape[3]), frames.dtype)
+    for i in range(frames.shape[0]):
+        out[i] = cv2.resize(frames[i], (out_w, out_h), interpolation=cv2.INTER_LINEAR)
+    return out
 
 
 def load_variables(checkpoint: str, init_fn: Callable[[], StateDict]) -> StateDict:
@@ -57,7 +101,7 @@ def load_variables(checkpoint: str, init_fn: Callable[[], StateDict]) -> StateDi
         return load_pth(checkpoint)
     if os.path.isdir(checkpoint):
         raise _not_ported("loading an Orbax checkpoint directory (it needs "
-                          "orbax, hence JAX)", "Orbax loading")
+                          "orbax, hence JAX)", "A4, Orbax loading")
     raise FileNotFoundError(f"checkpoint {checkpoint!r} not found")
 
 
@@ -82,24 +126,61 @@ class Predictor:
         device: Optional[Union[str, torch.device]] = None,
     ):
         """``device``: None means the CUDA card, and raises without one;
-        pass ``"cpu"`` to run the plain PyTorch path on the CPU."""
-        for flag, what, item in (
-            (artifact, "artifact serving", "queue A9, export"),
-            (mesh is not None, "mesh (multi-device) serving", "A13, multi-GPU"),
-            (preprocess_on_host, "preprocess_on_host", "A5, serving"),
-            (device_close, "device_close", "A5, serving"),
-            (fetch_pack4, "fetch_pack4", "A5, fetch_pack4 with the C1 check"),
-        ):
-            if flag:
-                raise _not_ported(what, item)
+        pass ``"cpu"`` to run the plain PyTorch path on the CPU. The
+        ValueErrors are the JAX Predictor's guards, in its order."""
+        if mesh is not None and model_cfg.use_pallas:
+            raise ValueError("use_pallas is single-chip only; Pallas kernels are not "
+                             "partitionable across a mesh")
+        if mesh is not None:
+            n_data = dict(getattr(mesh, "shape", None) or {}).get("data", 1)
+            if batch_size % n_data:
+                raise ValueError(f"batch_size {batch_size} not divisible by the mesh's "
+                                 f"data axis ({n_data} devices)")
+        if artifact and mesh is not None:
+            raise ValueError("artifact serving is single-chip: the exported computation "
+                             "carries no sharding annotations for GSPMD to partition")
+        # use_pallas forces colorize on (the CUDA argmax_colorize kernel), as
+        # in the JAX package; fetch_pack4 is checked against this effective
+        # flag (ROADMAP C1)
+        colorize = colorize_on_device or model_cfg.use_pallas
+        if fetch_pack4:
+            if model_cfg.num_classes > 16:
+                raise ValueError(f"fetch_pack4 packs class ids into 4 bits; model has "
+                                 f"{model_cfg.num_classes} classes (> 16)")
+            if device_close or colorize:
+                raise ValueError(
+                    "fetch_pack4 is incompatible with device_close (uses bit 0x80) and "
+                    "colorize_on_device (the 4 B/px color fetch dominates anyway); "
+                    "use_pallas forces colorize_on_device on")
+            if not upscale_on_host:
+                raise ValueError(
+                    "fetch_pack4 shrinks the model-res fetch; it requires "
+                    "upscale_on_host=True (the frame-res path re-inflates the fetch it "
+                    "exists to shrink)")
+            if input_hw[1] % 2:
+                raise ValueError("fetch_pack4 needs an even model width")
+        if device_close and upscale_on_host:
+            raise ValueError(
+                "device_close runs the 5x5 morph-close at the device program's output "
+                "resolution; pass upscale_on_host=False so that is the frame resolution "
+                "(reference parity)")
+        if artifact:
+            raise _not_ported("artifact serving", "A12, export")
+        if mesh is not None:
+            raise _not_ported("mesh (multi-device) serving", "A13, multi-GPU")
         self.device = resolve_device(device)
         self.model = build_model(model_cfg)
         validate_input_size(self.model, *input_hw)
         self.input_hw = tuple(input_hw)
         self.batch_size = batch_size
-        # use_pallas forces colorize on: the CUDA argmax_colorize kernel
-        self.colorize_on_device = colorize_on_device or model_cfg.use_pallas
+        self.colorize_on_device = colorize
         self.upscale_on_host = upscale_on_host
+        self.fetch_pack4 = fetch_pack4
+        self.device_close = device_close
+        self.preprocess_on_host = preprocess_on_host
+        # which host resize preprocess_on_host runs: "cv2" or "numpy"
+        self.preprocess_route = (("numpy" if cv2_or_none() is None else "cv2")
+                                 if preprocess_on_host else None)
         self.normalize_mean = tuple(
             IMAGENET_MEAN.tolist() if normalize_mean is None else normalize_mean)
         self.normalize_std = tuple(
@@ -110,8 +191,10 @@ class Predictor:
 
     @torch.inference_mode()
     def _device_forward(self, frames: torch.Tensor, out_hw: Tuple[int, int]):
-        """uint8 NHWC frames on the device -> class maps (and colours) at
-        ``out_hw``, still on the device."""
+        """uint8 NHWC frames on the device -> (class maps, colours or None)
+        at ``out_hw``, still on the device. With ``fetch_pack4`` the class
+        maps are nibble pairs [B, h, w/2]; with ``device_close`` bit 0x80
+        carries the closed road mask."""
         mh, mw = self.input_hw
         x = frames.to(torch.float32)
         if tuple(frames.shape[1:3]) != (mh, mw):
@@ -123,24 +206,59 @@ class Predictor:
             classes, packed = argmax_colorize(logits.contiguous(), COLOR_MAP_BGR)
         else:
             classes, packed = logits.argmax(dim=-1).to(torch.uint8), None
-        if out_hw != (mh, mw):
+        if tuple(out_hw) != (mh, mw):
+            # nearest upscale commutes with the palette lookup
             classes = resize_nearest(classes, *out_hw)
             packed = None if packed is None else resize_nearest(packed, *out_hw)
+        elif self.fetch_pack4:
+            # two 4-bit ids per fetched byte (high nibble = even column)
+            classes = (classes[..., 0::2] << 4) | classes[..., 1::2]
+        if self.device_close:
+            closed = morph_close(classes == ROAD_CLASS, 5)
+            classes = classes | (closed.to(torch.uint8) << 7)
         return classes, packed
 
-    def __call__(self, frames: np.ndarray):
-        """frames: uint8 RGB [B, H, W, 3] -> class maps uint8 [B, H, W]
-        (plus packed-BGR uint32 colours when colorize is on)."""
+    def _maybe_host_resize(self, frames: np.ndarray) -> np.ndarray:
+        """preprocess_on_host: the model-size INTER_LINEAR downscale of the
+        uint8 frames on the host (cv2, or its numpy replica)."""
+        mh, mw = self.input_hw
+        if not self.preprocess_on_host or frames.shape[1:3] == (mh, mw):
+            return frames
+        return host_resize_linear(frames, mh, mw)
+
+    def predict_async(self, frames: np.ndarray, out_hw: Optional[Tuple[int, int]] = None):
+        """Dispatch without a host sync: the device tensors, (classes,
+        colours) with colorize and classes alone without, in the layout
+        ``_device_forward`` describes.
+
+        ``out_hw``: the true frame size when the caller already downscaled
+        the frames; without ``upscale_on_host`` it is the device upscale's
+        target. Defaults to the frames' own size."""
         if frames.dtype != np.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
             raise ValueError(f"frames must be uint8 [B, H, W, 3], got "
                              f"{frames.dtype} {frames.shape}")
-        fh, fw = frames.shape[1], frames.shape[2]
-        out_hw = self.input_hw if self.upscale_on_host else (fh, fw)
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
-        classes, packed = self._device_forward(x, out_hw)
-        classes = classes.cpu().numpy()
-        packed = None if packed is None else packed.cpu().numpy()
+        fh, fw = out_hw if out_hw is not None else frames.shape[1:3]
+        dev_hw = self.input_hw if self.upscale_on_host else (fh, fw)
+        x = torch.from_numpy(np.ascontiguousarray(self._maybe_host_resize(frames)))
+        classes, packed = self._device_forward(x.to(self.device), dev_hw)
+        return (classes, packed) if self.colorize_on_device else classes
+
+    def finish_host(self, classes: np.ndarray, packed: Optional[np.ndarray],
+                    fh: int, fw: int):
+        """Fetched device outputs -> the __call__ result at frame size
+        (unpack the nibble pairs, then the host nearest upscale)."""
+        if self.fetch_pack4:
+            classes = unpack4_host(classes)
         if classes.shape[1:] != (fh, fw):
             classes = resize_nearest_host(classes, fh, fw)
             packed = None if packed is None else resize_nearest_host(packed, fh, fw)
         return classes if packed is None else (classes, packed)
+
+    def __call__(self, frames: np.ndarray):
+        """frames: uint8 RGB [B, H, W, 3] -> class maps uint8 [B, H, W]
+        (plus packed-BGR uint32 colours when colorize is on)."""
+        out = self.predict_async(frames)
+        classes, packed = out if self.colorize_on_device else (out, None)
+        return self.finish_host(classes.cpu().numpy(),
+                                None if packed is None else packed.cpu().numpy(),
+                                frames.shape[1], frames.shape[2])

@@ -164,8 +164,8 @@ def fused_inverted_residual(x: torch.Tensor, we: Optional[torch.Tensor], se, be,
                                          stride, use_res)
     if x.dtype == torch.bfloat16:
         raise NotImplementedError(
-            "bfloat16 activations are not ported yet (ROADMAP.md, What is "
-            "left item 4: bf16)")
+            "bfloat16 activations are not ported yet (ROADMAP.md, A15: "
+            "bf16)")
     tensors = dict(x=x, wd=wd, sd=sd, bd=bd, wp=wp, sp=sp, bp=bp)
     if we is not None:
         tensors.update(we=we, se=se, be=be)

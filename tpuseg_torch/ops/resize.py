@@ -191,3 +191,64 @@ def resize_nearest_host(arr: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     rows = nearest_indices(arr.shape[1], out_h)
     cols = nearest_indices(arr.shape[2], out_w)
     return arr[:, rows[:, None], cols[None, :]]
+
+
+def _linear_u8_taps(n_in: int, n_out: int, clamp: bool):
+    """cv2's INTER_LINEAR taps along one axis: (lo, hi, c0, c1) with 11-bit
+    coefficients rint((1-f)*2048) and rint(f*2048), ``f`` in float32 from
+    (d+0.5)*scale-0.5. ``clamp`` (the horizontal pass) pins an outside
+    source to the edge pixel with f = 0; the vertical pass keeps its f and
+    clamps only the rows it reads."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        edge = (s < 0) | (s >= n_in - 1)
+        f[edge] = 0.0
+        s = np.clip(s, 0, n_in - 1)
+    c0 = np.rint((np.float32(1.0) - f) * np.float32(2048)).astype(np.int32)
+    c1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    return np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1), c0, c1
+
+
+def resize_linear_u8_host(frames: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """``cv2.resize(frame, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
+    on every frame of a uint8 [B, H, W, C] batch, bit for bit, in numpy.
+
+    cv2's fixed-point route: a horizontal pass of 11-bit coefficients into
+    int32 rows (exact), then the vertical pass as cv2's SIMD code computes
+    it, ``(((c0*(r0>>4))>>16) + ((c1*(r1>>4))>>16) + 2) >> 2`` saturated to
+    uint8 (the scalar ``(c0*r0 + c1*r1 + 2^21) >> 22`` differs by 1 on about
+    a tenth of the bytes). An exact 2x downscale in both axes is cv2's
+    INTER_AREA there, ``(a+b+c+d+2) >> 2``; the same size is a copy.
+
+    Checked bit-equal to cv2 5.0.0 at downscales and upscales, the upscale
+    edges included (tests/test_torch_port_infer.py). A cv2 build whose
+    vertical pass runs a scalar tail where 3*out_w is not a multiple of its
+    vector width could differ there by 1; model widths are multiples of 32,
+    so 3*out_w is a multiple of 96 at every served size and no tail runs."""
+    if frames.dtype != np.uint8 or frames.ndim != 4:
+        raise ValueError(f"frames must be uint8 [B, H, W, C], got {frames.dtype} {frames.shape}")
+    h, w = frames.shape[1:3]
+    if (h, w) == (out_h, out_w):
+        return frames.copy()
+    if (h, w) == (2 * out_h, 2 * out_w):
+        s = frames.astype(np.int32)
+        return ((s[:, 0::2, 0::2] + s[:, 0::2, 1::2] + s[:, 1::2, 0::2] + s[:, 1::2, 1::2] + 2)
+                >> 2).astype(np.uint8)
+    b, c = frames.shape[0], frames.shape[3]
+    x0, x1, a0, a1 = _linear_u8_taps(w, out_w, clamp=True)
+    y0, y1, b0, b1 = _linear_u8_taps(h, out_h, clamp=False)
+    # the horizontal pass, on the source rows the vertical pass reads, as
+    # column gathers of [B*rows, W*C] bytes
+    rows, inv = np.unique(np.concatenate([y0, y1]), return_inverse=True)
+    src = frames[:, rows].reshape(b * len(rows), w * c)
+    ch = np.arange(c)
+    cols0, cols1 = ((x[:, None] * c + ch).ravel() for x in (x0, x1))
+    horiz = (src[:, cols0].astype(np.int32) * np.repeat(a0, c)
+             + src[:, cols1].astype(np.int32) * np.repeat(a1, c)) >> 4
+    horiz = horiz.reshape(b, len(rows), out_w * c)
+    out = (((b0[:, None] * horiz[:, inv[:out_h]]) >> 16)
+           + ((b1[:, None] * horiz[:, inv[out_h:]]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(b, out_h, out_w, c)
