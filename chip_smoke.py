@@ -60,6 +60,28 @@ printing one JSON line; any failure raises and exits nonzero:
 5h. http   — the port's HTTP server in-process at --max_batch 1 and 8: 200
              raw-codec requests from 8 client threads, each response
              against the direct Predictor, requests/s, p50 and p99;
+5i. graphs — the port's captured steps (``tpuseg_torch/core/graphs.py``),
+             under deterministic algorithms: the Trainer's captured train
+             steps bit-equal to the same steps under ``graphs.eager()`` over
+             3 steps, for --train.loss=lovasz (with and without remat) and
+             for adamw + cosine warmup + grad_accum 2 + clip + EMA
+             (parameters, BatchNorm statistics, optimizer state, EMA,
+             generator; losses bit-equal, the Lovász value within its
+             atomics' tolerance); the Trainer's flip+ms eval over a padded
+             last batch equal to eager; steps_per_dispatch=4 equal to 8
+             captured single steps; every serve_ab route and every HTTP
+             bucket captured bit-equal to eager; the Predictor's graph cache
+             held to MAX_GRAPHS keys with the memory of as many (16 frame
+             sizes against 8). The launch counters, which a replay adds to,
+             are held against the device's own kernel counts from
+             torch.profiler: the two Lovász kernels over a 5-step
+             profile_dir run, argmax_colorize and the decoder kernel over
+             the kernel route's served batches. Then eager against
+             captured: the train p50 step and its stages at
+             steps_per_dispatch 1 and 4, the serve device stage and frames/s
+             (in turns: eager, captured, captured, eager), the profiled
+             run's top device operations, and the FLOPs of a train step and
+             a served forward with their fp32 bound;
 6. train   — the full-width mobilenetv2_unet trained through
              ``tpuseg_torch.main`` with --train.loss=lovasz (256 bins, batch
              8, 256x128, Adam 1.5e-4, augment on, synthetic scenes): the
@@ -67,7 +89,8 @@ printing one JSON line; any failure raises and exits nonzero:
              once per step, a checkpoint round-trips; then steady step
              times, the step's stages, and a 3-step A/B of the kernel loss
              against one built on the plain versions, under deterministic
-             algorithms: gradients and parameters bit-equal.
+             algorithms: the replayed steps' gradients (read after each
+             replay) and the final parameters bit-equal.
 
 The serving phases run as on a host without cv2, the path the port is
 built for: a meta-path finder refuses cv2 for the whole run (the device
@@ -81,15 +104,23 @@ launches on the serving (serve and video phases) or training path; fused_inverte
 no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
 result. fp32 comparisons run with TF32 off for both cuDNN and matmul.
+
+Every train step, eval step and served batch of the port runs as a replay
+of a captured CUDA graph, so each phase above runs the captured route; a
+phase that needs an eager forward (the mbconv phase's hooks) says so with
+``graphs.eager()``. Launch counts stay per call: a capture's launches are
+added at every replay, not at the capture.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.abc
 import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,6 +133,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.configs import load_config
+from tpuseg_torch.core import graphs
 from tpuseg_torch.core.prng import make_generator
 from tpuseg_torch.core.weights import init_weights
 from tpuseg_torch.data.augment import normalize_images
@@ -789,8 +821,10 @@ def phase_mbconv(pred, frames):
         lambda m, args, i=i: captured.append((i, nhwc(args[0]).clone())))
         for i, b in enumerate(blocks)]
     try:
-        for f in frames:
-            pred(f)
+        # hooks run where Python runs the forward: eager, not in a replay
+        with graphs.eager():
+            for f in frames:
+                pred(f)
     finally:
         for hk in hooks:
             hk.remove()
@@ -973,11 +1007,10 @@ def phase_serve_options(pth: Path, frames):
     emit(out)
 
 
-def phase_serve_ab(pth: Path, frames):
-    """Frames/s and p50 of the served flagship by route: the plain decoder
-    with colorize off and on, and the kernel route (use_pallas, colorize
-    forced on), each with the nearest upscale on the host and on the
-    device; two rounds in turns (forward order, then reverse)."""
+def serve_ab_routes(pth: Path) -> dict:
+    """The flagship's six serving routes: the plain decoder with colorize
+    off and on, and the kernel route, each with the nearest upscale on the
+    host and on the device."""
     routes = {}
     for dec, flags in (("plain", PLAIN_FLAGS), ("kernels", KERNEL_FLAGS)):
         for colorize in ((False, True) if dec == "plain" else (True,)):
@@ -986,6 +1019,15 @@ def phase_serve_ab(pth: Path, frames):
                          f"upscale_{'host' if host else 'device'}")
                 routes[label] = flagship(pth, flags, colorize_on_device=colorize,
                                          upscale_on_host=host)
+    return routes
+
+
+def phase_serve_ab(pth: Path, frames):
+    """Frames/s and p50 of the served flagship by route: the plain decoder
+    with colorize off and on, and the kernel route (use_pallas, colorize
+    forced on), each with the nearest upscale on the host and on the
+    device; two rounds in turns (forward order, then reverse)."""
+    routes = serve_ab_routes(pth)
     rows = {k: [] for k in routes}
     for order in (list(routes), list(routes)[::-1]):
         for label in order:
@@ -1183,7 +1225,8 @@ def phase_train(perf) -> dict:
     from tpuseg_torch.main import main as train_main
     from tpuseg_torch.ops.lovasz import lovasz_binned_plain
     from tpuseg_torch.train.loss import lovasz_errors, make_loss_fn
-    from tpuseg_torch.train.train_step import create_optimizer, make_train_step
+    from tpuseg_torch.train.optim import Optimizer
+    from tpuseg_torch.train.train_step import make_train_step
     from tpuseg_torch.train.trainer import Trainer
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as ck:
@@ -1245,7 +1288,7 @@ def phase_train(perf) -> dict:
         batch = next(gen, None)
         if batch is None:
             break
-        tr.train_step(*batch, tr.aug_generator)
+        tr.train_step(*batch)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     steady = lat[3:]
@@ -1277,8 +1320,12 @@ def phase_train(perf) -> dict:
     # kernel loss, with a loss built on the plain versions, and with that one
     # again (the noise floor of the rest of the step). Deterministic
     # algorithms make the rest of the step repeat bit for bit, and w is
-    # bit-equal on both routes, so the first step's gradients and the final
-    # parameters must be equal; only the loss values differ (error sums).
+    # bit-equal on both routes, so every replayed step's gradients and the
+    # final parameters must be equal; only the loss values differ (error
+    # sums). The step is captured: its first call runs eagerly and then
+    # captures, which leaves each p.grad a graph tensor that no kernel has
+    # written yet, so the gradients are read after each replay (steps 2 on),
+    # and each read must be finite and not all zero.
     start = copy.deepcopy(tr.model.state_dict())
     batches = [tr.augment(*pipe._put(pipe._assemble(pipe.sampler.sample(
         cfg.train.batch_size))), tr.aug_generator) for _ in range(AB_STEPS)]
@@ -1289,13 +1336,21 @@ def phase_train(perf) -> dict:
     def ab_run(loss_fn):
         model = build_model(cfg.model).to("cuda", memory_format=torch.channels_last)
         model.load_state_dict(start)
-        ab_step = make_train_step(model, create_optimizer(model, lr=cfg.train.lr),
+        ab_step = make_train_step(model, Optimizer(model.parameters(), lr=cfg.train.lr),
                                   loss_fn=loss_fn)
-        losses, grads = [], None
-        for x, y in batches:
+        losses, grads = [], {}
+        for i, (x, y) in enumerate(batches):
             losses.append(float(ab_step(x, y)["loss"]))
-            if grads is None:
-                grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+            if i > 0:
+                grads.update({f"step{i + 1}.{k}": p.grad.clone()
+                              for k, p in model.named_parameters()})
+        if ab_step.replays() != AB_STEPS - 1:
+            raise AssertionError(f"A/B: {ab_step.replays()} replays of {AB_STEPS} steps")
+        norms = [float(torch.stack([g.norm() for k, g in grads.items()
+                                    if k.startswith(f"step{i + 1}.")]).norm())
+                 for i in range(1, AB_STEPS)]
+        if not all(math.isfinite(n) and n > 0 for n in norms):
+            raise AssertionError(f"A/B: replayed steps' gradient norms {norms}")
         return losses, grads, dict(model.named_parameters())
 
     def max_diff(a, b):
@@ -1314,8 +1369,8 @@ def phase_train(perf) -> dict:
                                    if "deterministic" in str(w.message)})
     (lk, gk, pk), (lp, gp, pp), (_, ga, pa) = runs.values()
     loss_diff = max(abs(a - b) for a, b in zip(lk, lp))
-    ab = {"steps": AB_STEPS, "max_loss_diff": loss_diff,
-          "max_grad_diff": max_diff(gk, gp), "max_param_diff": max_diff(pk, pp),
+    ab = {"steps": AB_STEPS, "grad_steps_compared": list(range(2, AB_STEPS + 1)),
+          "max_loss_diff": loss_diff, "max_grad_diff": max_diff(gk, gp), "max_param_diff": max_diff(pk, pp),
           "floor_grad_diff": max_diff(ga, gp), "floor_param_diff": max_diff(pa, pp),
           "nondeterministic_ops": nondeterministic_ops,
           "kernel_losses": lk, "plain_losses": lp}
@@ -1338,6 +1393,385 @@ def phase_train(perf) -> dict:
            "ab": ab}
     emit(out)
     return counts
+
+
+# the graphs phase: the options configuration of its second train A/B, the
+# steps of each A/B and timing, and K of the multi-step dispatch
+GRAPH_OPTIONS = ["--train.optimizer=adamw", "--train.lr_schedule=cosine",
+                 "--train.warmup_steps=2", "--train.grad_accum=2",
+                 "--train.grad_clip_norm=1.0", "--train.ema_decay=0.9"]
+GRAPH_AB_STEPS, GRAPH_TIMED, GRAPH_K, PROFILE_STEPS = 3, 20, 4, 5
+
+
+def graph_trainer(flags):
+    """A Trainer of the slice's configuration (full width, batch 8,
+    256x128, synthetic scenes), with ``flags`` on top; no checkpoints."""
+    from tpuseg_torch.main import default_sources
+    from tpuseg_torch.train.trainer import Trainer
+
+    cfg = load_config(["--train.checkpoint_dir=", "--data.val_split=0", "--train.epochs=1",
+                       "--train.log_every=0", *flags])
+    cfg.data.sources = default_sources(cfg)
+    return Trainer(cfg)
+
+
+def draw_batches(tr, n: int):
+    """``n`` device batches from the Trainer's own seeded sampler."""
+    pipe = tr.pipeline
+    return [pipe._put(pipe._assemble(pipe.sampler.sample(tr.cfg.train.batch_size)))
+            for _ in range(n)]
+
+
+def dispatch(tr, group):
+    """One call of the Trainer's step on a group of batches (1 or K)."""
+    if len(group) == 1:
+        return tr.train_step(*group[0])
+    return tr.train_step(torch.stack([g[0] for g in group]), torch.stack([g[1] for g in group]))
+
+
+def train_snapshot(tr) -> dict:
+    """Everything a step moves: parameters, BatchNorm statistics, optimizer
+    state and EMA (device copies), and the augmentation generator."""
+    snap = {f"model.{k}": v.detach().clone() for k, v in tr.model.state_dict().items()}
+    for k, v in tr.optimizer.state.items():
+        for i, t in enumerate(v if isinstance(v, list) else [v]):
+            snap[f"optimizer.{k}.{i}"] = t.detach().clone()
+    snap["generator"] = tr.aug_generator.get_state()
+    return snap
+
+
+def train_run(flags, steps: int, eager: bool, k: int = 1):
+    """(losses, snapshot, replays) of ``steps`` steps of a fresh Trainer,
+    dispatched in groups of ``k``, captured or under graphs.eager()."""
+    tr = graph_trainer(flags + ([f"--train.steps_per_dispatch={k}"] if k > 1 else []))
+    batches = draw_batches(tr, steps)
+    losses = []
+    kernels.reset_launches()
+    with graphs.eager() if eager else contextlib.nullcontext():
+        for i in range(0, steps, k):
+            losses += np.atleast_1d(dispatch(tr, batches[i:i + k])["loss"].cpu().numpy()).tolist()
+    torch.cuda.synchronize()
+    replays = 0 if eager else tr.train_step.replays()
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    out = (losses, train_snapshot(tr), replays, counts)
+    del tr
+    return out
+
+
+def snapshot_diff(a: dict, b: dict) -> dict:
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    return {"tensors": len(a), "differ": differ[:8], "n_differ": len(differ),
+            "max_abs_diff": max([float((a[k].double() - b[k].double()).abs().max())
+                                 for k in differ] + [0.0])}
+
+
+def train_ab(flags, label: str, lovasz: bool) -> dict:
+    """Captured against eager, GRAPH_AB_STEPS steps from one seeded state,
+    deterministic algorithms: the state bit-equal. The Lovász loss value
+    sums its error histogram with float atomics, so its low bits move from
+    run to run; it is held to LOVASZ_VALUE_ATOL, and any other loss must be
+    bit-equal."""
+    cap_l, cap_s, replays, cap_n = train_run(flags, GRAPH_AB_STEPS, eager=False)
+    eag_l, eag_s, _, eag_n = train_run(flags, GRAPH_AB_STEPS, eager=True)
+    row = {"flags": flags, "steps": GRAPH_AB_STEPS, "replays": replays,
+           "launches_captured": cap_n, "launches_eager": eag_n,
+           "captured_losses": cap_l, "eager_losses": eag_l,
+           "state": snapshot_diff(cap_s, eag_s)}
+    want_n = ({"lovasz_histograms": GRAPH_AB_STEPS, "lovasz_lookup": GRAPH_AB_STEPS}
+              if lovasz else {})
+    if cap_n != want_n or eag_n != want_n:
+        raise AssertionError(f"graphs: {label} launches {cap_n} captured, {eag_n} eager, "
+                             f"want {want_n}")
+    if lovasz:
+        row["max_loss_diff"] = max(abs(a - b) for a, b in zip(cap_l, eag_l))
+        loss_ok = row["max_loss_diff"] <= LOVASZ_VALUE_ATOL
+    else:
+        loss_ok = cap_l == eag_l
+    if row["state"]["n_differ"] or not loss_ok or replays != GRAPH_AB_STEPS - 1:
+        raise AssertionError(f"graphs: captured and eager {label} steps differ: {row}")
+    return row
+
+
+def train_timing(flags, k: int, eager: bool) -> dict:
+    """Host-clock p50 of one step (a dispatch over k) and its stages,
+    synchronized apart: the host batch, the upload, and the device step
+    (augment, forward, loss, backward, update; with k > 1 the stack too)."""
+    tr = graph_trainer(flags + ([f"--train.steps_per_dispatch={k}"] if k > 1 else []))
+    pipe, bs = tr.pipeline, tr.cfg.train.batch_size
+    st = {"host_batch": [], "upload": [], "device_step": [], "step": []}
+    with graphs.eager() if eager else contextlib.nullcontext():
+        for _ in range(GRAPH_TIMED + 3):
+            t0 = time.perf_counter()
+            host = [pipe._assemble(pipe.sampler.sample(bs)) for _ in range(k)]
+            t1 = time.perf_counter()
+            dev = [pipe._put(h) for h in host]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            dispatch(tr, dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for key, dt in zip(st, (t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
+                st[key].append(dt * 1e3 / k)
+    del tr
+    return {f"{key}_ms": float(np.median(v[3:])) for key, v in st.items()}
+
+
+def eval_ab() -> dict:
+    """The Trainer's evaluate() with the flip+ms TTA ladder over a val split
+    whose last batch is padded: captured equal to eager, metric for metric."""
+    tr = graph_trainer(["--data.val_split=0.05", "--train.eval_tta=flip+ms"])
+    n_val = tr.combined.val_size
+    captured = tr.evaluate()
+    with graphs.eager():
+        eager = tr.evaluate()
+    replays = tr.eval_step.replays()
+    del tr
+    if captured != eager or n_val % BATCH == 0 or replays != -(-n_val // BATCH) - 1:
+        raise AssertionError(f"graphs: eval captured {captured} eager {eager}, "
+                             f"{n_val} samples, {replays} replays")
+    return {"val_samples": n_val, "replays": replays, "val_miou": captured["val_miou"],
+            "equal": True}
+
+
+# each path kernel's wrapper launches one of these device kernels once per
+# call (and the other kernel of its source, where it has one, beside it)
+DEVICE_KERNELS = {"argmax_colorize": "argmax_colorize_kernel",
+                  "fused_upsample_concat_conv": "upconcat_mma_kernel",
+                  "lovasz_histograms": "hist_partial", "lovasz_lookup": "lookup_kernel"}
+
+
+def device_time(e) -> float:
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def on_device(e) -> bool:
+    """The device's own events (kernels, copies, fills), not the host ops
+    that launched them."""
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def device_counts(events, wrappers) -> dict:
+    """How often the device ran each wrapper's kernel, from torch.profiler's
+    averaged events (a kernel inside a graph counts at every replay)."""
+    out = {}
+    for w in wrappers:
+        name = re.compile(rf"(^|[\s:]){DEVICE_KERNELS[w]}[<(]")
+        out[w] = sum(e.count for e in events if on_device(e) and name.search(e.key))
+    return out
+
+
+def check_counted(counts: dict, events, wrappers, what: str) -> dict:
+    """The launch counters against the device's kernel counts."""
+    seen = device_counts(events, wrappers)
+    mine = {w: counts.get(w, 0) for w in wrappers}
+    if seen != mine or not all(seen.values()):
+        raise AssertionError(f"graphs: {what}: launch counters {mine}, the device ran {seen}")
+    return seen
+
+
+def train_profile() -> dict:
+    """A PROFILE_STEPS-step run through Trainer.train() with profile_dir:
+    the device operations that take most of its time, and their sum."""
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as prof_dir:
+        tr = graph_trainer(["--train.loss=lovasz", f"--train.profile_dir={prof_dir}",
+                            f"--train.steps_per_epoch={PROFILE_STEPS}"])
+        kernels.reset_launches()
+        tr.train()
+        counts = dict(kernels.launches)
+        traces = sorted(p.name for p in Path(prof_dir).glob("*.trace.json"))
+        events = tr.profiler.key_averages()
+    rows = sorted((e for e in events if on_device(e) and device_time(e) > 0),
+                  key=device_time, reverse=True)
+    total_ms = sum(device_time(e) for e in rows) / 1e3
+    if not traces or total_ms <= 0:
+        raise AssertionError(f"profile_dir wrote {traces}, device time {total_ms} ms")
+    seen = check_counted(counts, events, ("lovasz_histograms", "lovasz_lookup"),
+                         f"{PROFILE_STEPS}-step profile_dir run")
+    if set(seen.values()) != {PROFILE_STEPS}:
+        raise AssertionError(f"graphs: {PROFILE_STEPS} profiled steps ran {seen}")
+    return {"steps": tr.step, "traces": traces, "device_ms_total": total_ms,
+            "device_ms_per_step": total_ms / tr.step,
+            "device_kernel_counts": seen,
+            "top": [{"name": e.key[:90], "calls": e.count, "device_ms": device_time(e) / 1e3,
+                     "share": device_time(e) / 1e3 / total_ms} for e in rows[:12]],
+            "note": "the first step runs eagerly (warm-up) before the capture; "
+                    "self device time, summed over the run"}
+
+
+def flops(pth: Path, frames) -> dict:
+    """FLOPs (aten convs and products, FlopCounterMode) of one eager train
+    step of the slice's configuration and of one served forward (the plain
+    decoder: the kernel route's decoder is not an aten op), and the time
+    the card would take for them at the fp32 peak (TF32 off)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    tr = graph_trainer(["--train.loss=lovasz"])
+    batch = draw_batches(tr, 1)[0]
+    with graphs.eager(), FlopCounterMode(display=False) as fc:
+        tr.train_step(*batch)
+    step = fc.get_total_flops()
+    del tr
+    p = flagship(pth, PLAIN_FLAGS)
+    with FlopCounterMode(display=False) as fc, torch.inference_mode():
+        p.model(model_input(p, frames[0]))
+    fwd = fc.get_total_flops()
+    return {"train_step_gflop": step / 1e9, "train_step_bound_ms": bound_ms(0, step)[0],
+            "serve_forward_gflop": fwd / 1e9, "serve_forward_bound_ms": bound_ms(0, fwd)[0],
+            "peak": "fp32 67 TFLOP/s (TF32 off)"}
+
+
+def same_outputs(a, b) -> bool:
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def serve_graphs(pth: Path, frames) -> dict:
+    """Every serve_ab route and every HTTP bucket: captured class maps (and
+    colours) bit-equal to eager ones; the kernel route's launches counted
+    through replays and held against the device's kernel counts; the
+    Predictor's graph cache; eager against captured device stage and
+    frames/s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuseg_torch.tools import serve
+
+    out = {"routes": {}, "buckets": {}}
+    routes = serve_ab_routes(pth)
+    for label, p in routes.items():
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = [p(f) for f in frames]
+            torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        with graphs.eager():
+            want = [p(f) for f in frames]
+        if not all(same_outputs(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"graphs: route {label} captured differs from eager")
+        replays = p._device_forward.replays()
+        if replays != len(frames) - 1:
+            raise AssertionError(f"graphs: route {label} replayed {replays} times")
+        if label.startswith("kernels") and (
+                counts["argmax_colorize"] != len(frames)
+                or counts["fused_upsample_concat_conv"] != 4 * len(frames)):
+            raise AssertionError(f"graphs: {label} launches {counts} over {len(frames)} calls")
+        row = {"bit_equal": True, "replays": replays, "launches": counts}
+        if label.startswith("kernels"):
+            row["device_kernel_counts"] = check_counted(
+                counts, prof.key_averages(), ("argmax_colorize", "fused_upsample_concat_conv"),
+                f"route {label}")
+        out["routes"][label] = row
+    args = serve.parse_args(["--port", "0", "--checkpoint", str(pth), "--max_batch", "8"])
+    p = serve.build_predictor(args)
+    small = [p._maybe_host_resize(np.ascontiguousarray(f)) for f in frames]
+    b = 1
+    while b <= 8:
+        got = [p(f[:b]) for f in small]
+        with graphs.eager():
+            want = [p(f[:b]) for f in small]
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"graphs: HTTP bucket {b} captured differs from eager")
+        out["buckets"][str(b)] = {"bit_equal": True}
+        b *= 2
+    out["http_predictor_replays"] = p._device_forward.replays()
+    out["graph_cache"] = graph_cache(pth)
+    # eager against captured, in turns: eager, captured, captured, eager
+    timing = {}
+    for label in ("kernels_decoder_colorize_on_upscale_host",
+                  "plain_decoder_colorize_off_upscale_host"):
+        p, rows = routes[label], {"eager": [], "captured": []}
+        for mode in ("eager", "captured", "captured", "eager"):
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                fps, p50 = timed(p, frames)
+                rows[mode].append({"frames_per_s": fps, "p50_batch_ms": p50,
+                                   "device_ms": stages(p, frames)["device"]})
+        timing[label] = rows
+    out["timing"] = timing
+    return out
+
+
+def reserved_after_release() -> int:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def graph_cache(pth: Path) -> dict:
+    """The Predictor's graph cache at 2 * MAX_GRAPHS frame sizes, one frame
+    each: it keeps MAX_GRAPHS keys and the device memory of as many (an
+    unbounded cache would hold twice that), and a dropped key is captured
+    again and answers as eager."""
+    p = flagship(pth, KERNEL_FLAGS, colorize_on_device=True)
+    cap = p.MAX_GRAPHS
+    rng = np.random.RandomState(SEED)
+    sizes = [(FRAME_HW[0] + 8 * i, FRAME_HW[1]) for i in range(2 * cap)]
+    frames = [rng.randint(0, 256, (1, *hw, 3), np.uint8) for hw in sizes]
+    base = reserved_after_release()
+    first = [p(f) for f in frames[:cap]]
+    held = reserved_after_release() - base
+    rest = [p(f) for f in frames[cap:]]
+    after = reserved_after_release() - base
+    again = p(frames[0])
+    with graphs.eager():
+        want = [p(f) for f in frames]
+    row = {"max_graphs": cap, "frame_sizes": len(sizes), "kept": len(p._device_forward.entries),
+           "captures": p._device_forward.captures,
+           "reserved_mib_after_max_graphs": held / 2**20,
+           "reserved_mib_after_twice_as_many": after / 2**20}
+    if row["kept"] != cap or row["captures"] != 2 * cap + 1 or not after < 1.5 * held or \
+            not all(same_outputs(g, w) for g, w in zip(first + rest + [again], want + want[:1])):
+        raise AssertionError(f"graphs: the Predictor's graph cache: {row}")
+    del p
+    return row
+
+
+def phase_graphs(pth: Path, frames) -> None:
+    """The captured steps: train steps (the slice's and an options
+    configuration), K steps per dispatch, the served forwards; bit-equal
+    to eager; then eager against captured times and a profiled run."""
+    out = {"phase": "graphs",
+           "register_generator_state": hasattr(torch.cuda.CUDAGraph,
+                                               "register_generator_state")}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out["train_lovasz"] = train_ab(["--train.loss=lovasz"], "lovasz", lovasz=True)
+            out["train_options"] = train_ab(GRAPH_OPTIONS, "options", lovasz=False)
+            out["train_remat"] = train_ab(["--train.loss=lovasz", "--train.remat=true"],
+                                          "remat", lovasz=True)
+            out["eval"] = eval_ab()
+            steps = 2 * GRAPH_K
+            multi_l, multi_s, multi_r, multi_n = train_run(["--train.loss=lovasz"], steps,
+                                                           False, GRAPH_K)
+            single_l, single_s, _, single_n = train_run(["--train.loss=lovasz"], steps, False)
+            multi = {"k": GRAPH_K, "steps": steps, "replays": multi_r,
+                     "launches_multi": multi_n, "launches_single": single_n,
+                     "state": snapshot_diff(multi_s, single_s),
+                     "max_loss_diff": max(abs(a - b) for a, b in zip(multi_l, single_l))}
+            if multi["state"]["n_differ"] or multi["max_loss_diff"] > LOVASZ_VALUE_ATOL \
+                    or multi_r != 1 or multi_n != single_n or \
+                    multi_n.get("lovasz_histograms") != steps:
+                raise AssertionError(f"graphs: {GRAPH_K} steps per dispatch differ from "
+                                     f"single steps: {multi}")
+            out["steps_per_dispatch"] = multi
+            out["serve"] = serve_graphs(pth, frames)
+        out["nondeterministic_ops"] = sorted({str(w.message).split(" ")[0] for w in caught
+                                              if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    flags = ["--train.loss=lovasz"]
+    timing = {}
+    for k in (1, GRAPH_K):
+        rows = {"eager": [], "captured": []}
+        for mode in ("eager", "captured", "captured", "eager"):
+            rows[mode].append(train_timing(flags, k, mode == "eager"))
+        timing[f"steps_per_dispatch_{k}"] = rows
+    out["train_timing"] = timing
+    out["train_profile"] = train_profile()
+    out["flops"] = flops(pth, frames)
+    emit(out)
 
 
 def main() -> int:
@@ -1369,6 +1803,7 @@ def main() -> int:
         phase_serve_ab(pth, frames)
         video_counts = phase_video(pth)
         phase_http(pth, frames)
+        phase_graphs(pth, frames)
     train_counts = phase_train(perf)
     # the serving paths: the serve phase's batches and the video phase's
     launches = {"argmax_colorize": serve_counts["argmax_colorize"]

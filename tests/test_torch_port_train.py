@@ -5,8 +5,8 @@ package's, on mobilenetv2_unet.
 same Flax init (with non-trivial BatchNorm statistics) goes into both
 packages through ``state_dict_from_flax``, the same seeded batches go
 through JAX's ``make_train_step`` with optax Adam and the port's step with
-``torch.optim.Adam``, augment off, at width_mult 0.25, 64x128, batch 2. In
-f64 the summation-order noise is ~1e-13 here, so any semantic difference
+its ``Optimizer`` (optax's formulas), augment off, at width_mult 0.25,
+64x128, batch 2. In f64 the summation-order noise is ~1e-13 here, so any semantic difference
 (the loss, BatchNorm's train-mode statistics, the bilinear backward, Adam)
 shows: losses at rtol 1e-9, parameters at rtol 1e-6 / atol 1e-8, and
 BatchNorm running mean and var at rtol 1e-9 (atol 1e-10, as
@@ -48,7 +48,8 @@ from tpuseg_torch.core.weights import state_dict_from_flax
 from tpuseg_torch.models.registry import build_model
 from tpuseg_torch.ops.resize import _taps64
 from tpuseg_torch.train.loss import make_loss_fn
-from tpuseg_torch.train.train_step import create_optimizer, make_train_step
+from tpuseg_torch.train.optim import Optimizer
+from tpuseg_torch.train.train_step import make_train_step
 
 WIDTH, HW, BATCH, STEPS, LR = 0.25, (64, 128), 2, 3, 1.5e-4
 
@@ -135,7 +136,8 @@ def _jax_run(variables, batches, loss, dtype, subpixel, steps):
 def _port_run(variables, batches, loss, dtype, subpixel, steps):
     model = build_model(ModelConfig(width_mult=WIDTH, up_subpixel=subpixel)).to(dtype)
     model.load_state_dict(state_dict_from_flax(variables, dtype=dtype), strict=True)
-    step = make_train_step(model, create_optimizer(model, lr=LR), loss_fn=make_loss_fn(loss))
+    step = make_train_step(model, Optimizer(model.parameters(), lr=LR),
+                           loss_fn=make_loss_fn(loss))
     losses = [float(step(torch.from_numpy(x), torch.from_numpy(y))["loss"])
               for x, y in batches[:steps]]
     return losses, model.state_dict()

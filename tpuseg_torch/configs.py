@@ -79,7 +79,7 @@ class DataConfig:
 
 @dataclass
 class TrainConfig:
-    """Training hyperparameters (training is not ported yet)."""
+    """Training hyperparameters (the JAX package's; see train/trainer.py)."""
 
     batch_size: int = 8
     lr: float = 1.5e-4
@@ -125,7 +125,7 @@ class TrainConfig:
     resume: bool = False
     init_checkpoint: str = ""
     remat: bool = False
-    # TPU dispatch batching; no effect in the port (PyTorch runs eagerly).
+    # steps per captured graph (one host dispatch); epochs round up to whole groups
     steps_per_dispatch: int = 1
     grad_accum: int = 1
     grad_clip_norm: float = 0.0

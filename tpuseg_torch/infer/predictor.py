@@ -3,11 +3,19 @@
 The port of ``tpuseg/infer/predictor.py`` with its call contract: uint8 RGB
 frames [B, H, W, 3] of any fixed size go in, uint8 class maps [B, H, W] at
 the same size come out, plus packed uint32 colours (0x00RRGGBB of the BGR
-palette) when colorize is on. On the device, in one eager pass: bilinear
-resize to the model size (half-pixel, cv2 INTER_LINEAR convention),
-normalize, forward, then argmax — or, with colorize, the CUDA
-``argmax_colorize`` kernel, which ``use_pallas`` forces on as in the JAX
-package.
+palette) when colorize is on. On the device, in one pass: bilinear resize
+to the model size (half-pixel, cv2 INTER_LINEAR convention), normalize,
+forward, then argmax — or, with colorize, the CUDA ``argmax_colorize``
+kernel, which ``use_pallas`` forces on as in the JAX package. On the card
+that pass is one CUDA graph per (batch size, frame size, output size),
+captured at its first call and replayed after (``core/graphs.py``), the
+counterpart of the JAX Predictor's cache of jitted programs; its outputs
+are the graph's tensors until the next call at the same key. A graph holds
+the memory of the whole pass (its intermediates at frame size), where a
+jitted program holds none, so the cache keeps at most ``MAX_GRAPHS`` keys:
+past that the least recently called one is dropped with its memory, and
+captured again if it comes back. The HTTP server's buckets and the video
+pipeline use a few fixed keys; callers with frames of many sizes recapture.
 
 The nearest upscale back to the frame size runs on the host by default
 (``upscale_on_host``), in numpy with the ``floor(i*n/m)`` index formula of
@@ -37,7 +45,10 @@ Every family of the registry serves through it, the model built from
 pixel, as the JAX Predictor's argmax does.
 
 Checkpoints: ``""`` gives a seeded init, a path ending in ``.pth`` is a
-state_dict (reference key names; flax's module names for FPN and DeepLab).
+state_dict (reference key names; flax's module names for FPN and DeepLab),
+and a training checkpoint of the port (a ``step_<N>.pt`` file, or a
+checkpoint directory, whose latest step is taken) serves its EMA weights
+when it has them, as the JAX package serves ``ema_params``.
 Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
 Orbax directories (A4), ``artifact`` (A12), ``mesh`` (A13) and int8
 ``quant`` (A11/A12).
@@ -52,6 +63,7 @@ import numpy as np
 import torch
 
 from tpuseg_torch.configs import ModelConfig
+from tpuseg_torch.core import graphs
 from tpuseg_torch.core.dtypes import resolve_device
 from tpuseg_torch.data.augment import normalize_images
 from tpuseg_torch.data.class_maps import COLOR_MAP_BGR, IMAGENET_MEAN, IMAGENET_STD
@@ -99,14 +111,32 @@ def load_variables(checkpoint: str, init_fn: Callable[[], StateDict]) -> StateDi
         from tpuseg_torch.core.weights import load_pth
 
         return load_pth(checkpoint)
+    if checkpoint.endswith(".pt") and os.path.isfile(checkpoint):
+        return _training_weights(torch.load(checkpoint, map_location="cpu", weights_only=True))
     if os.path.isdir(checkpoint):
+        from tpuseg_torch.core.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(checkpoint)
+        if mgr.latest_step() is not None:
+            return _training_weights(mgr.restore())
         raise _not_ported("loading an Orbax checkpoint directory (it needs "
                           "orbax, hence JAX)", "A4, Orbax loading")
     raise FileNotFoundError(f"checkpoint {checkpoint!r} not found")
 
 
+def _training_weights(payload: dict) -> StateDict:
+    """A port training checkpoint's model state_dict, with its EMA
+    parameters in place of the raw ones when it has them (they are what the
+    Trainer evaluated and selected the best checkpoint by)."""
+    weights = dict(payload["model"])
+    weights.update(payload.get("ema") or {})
+    return weights
+
+
 class Predictor:
     """Batched (frames -> class maps) on one device."""
+
+    MAX_GRAPHS = 8      # captured device passes kept (see the module)
 
     def __init__(
         self,
@@ -188,13 +218,17 @@ class Predictor:
         self.model.load_state_dict(
             load_variables(checkpoint, self.model.state_dict))
         self.model.to(self.device, memory_format=torch.channels_last).eval()
+        # the device pass, one CUDA graph per input shape and out_hw
+        self._device_forward = graphs.Captured(self._device_forward_eager, "serve_forward",
+                                               max_keys=self.MAX_GRAPHS)
 
     @torch.inference_mode()
-    def _device_forward(self, frames: torch.Tensor, out_hw: Tuple[int, int]):
+    def _device_forward_eager(self, frames: torch.Tensor, out_hw: Tuple[int, int]):
         """uint8 NHWC frames on the device -> (class maps, colours or None)
         at ``out_hw``, still on the device. With ``fetch_pack4`` the class
         maps are nibble pairs [B, h, w/2]; with ``device_close`` bit 0x80
-        carries the closed road mask."""
+        carries the closed road mask. ``_device_forward`` is this pass,
+        captured."""
         mh, mw = self.input_hw
         x = frames.to(torch.float32)
         if tuple(frames.shape[1:3]) != (mh, mw):
@@ -229,7 +263,9 @@ class Predictor:
     def predict_async(self, frames: np.ndarray, out_hw: Optional[Tuple[int, int]] = None):
         """Dispatch without a host sync: the device tensors, (classes,
         colours) with colorize and classes alone without, in the layout
-        ``_device_forward`` describes.
+        ``_device_forward`` describes. On the card they are the captured
+        graph's outputs, which the next call at the same shapes overwrites:
+        copy them, or queue their reads before that call.
 
         ``out_hw``: the true frame size when the caller already downscaled
         the frames; without ``upscale_on_host`` it is the device upscale's

@@ -13,7 +13,10 @@ each batch's outputs are copied with ``non_blocking=True`` into pinned
 tensors and a CUDA event is recorded after the copy; ``flush`` waits on
 that event (the ``fetch_wait`` phase) before it reads. ``depth + 1`` sets
 of pinned buffers rotate, so no buffer is overwritten while its copy is in
-flight or its batch is unread.
+flight or its batch is unread. On the card the outputs are the captured
+forward's own tensors, which the next batch's replay overwrites; the copy
+is queued on the current stream right after the replay that made them and
+before the next one, and stream order keeps it ahead of the overwrite.
 
 ``run(video_path)`` opens the file with cv2 (it raises where cv2 does not
 import). Everything after the open runs in ``_run_capture``, which takes
@@ -59,6 +62,7 @@ class _PinnedFetch:
                 [(t.shape, t.dtype) for t in outs]:
             bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
             self.buffers[slot] = bufs
+        # queued before the next replay overwrites ``outs`` (stream order)
         for b, t in zip(bufs, outs):
             b.copy_(t, non_blocking=True)
         done = torch.cuda.Event()

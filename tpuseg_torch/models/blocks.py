@@ -19,7 +19,9 @@ BatchNorm eps is 1e-5 and momentum 0.1 (torch's defaults, the same
 statistics as the JAX package's flax decay 0.9). Every BatchNorm is
 ``BatchNorm2d`` below, which follows flax in train mode: the running
 variance takes the biased batch variance, where ``nn.BatchNorm2d`` takes
-the unbiased n/(n-1) one.
+the unbiased n/(n-1) one. Inside ``frozen_running_stats()`` (the
+recomputation of a remat forward) it normalizes the same way and leaves
+the running statistics where they are.
 
 ``upconcat_conv`` keeps the JAX routing of an up block's first conv
 (``ConvBNAct.upconcat_impl`` there): ``"subpixel"`` in train and eval;
@@ -29,7 +31,8 @@ the materialized upsample+concat otherwise.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Type
+import contextlib
+from typing import Iterator, Optional, Tuple, Type
 
 import torch
 import torch.nn as nn
@@ -39,6 +42,22 @@ from tpuseg_torch.ops.resize import upsample2x_bilinear
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+# > 0 while a remat forward is recomputed in the backward. A process-wide
+# count, not a thread-local one: the autograd engine may recompute on its
+# own device thread.
+_frozen_stats = [0]
+
+
+@contextlib.contextmanager
+def frozen_running_stats() -> Iterator[None]:
+    """Train-mode BatchNorm that does not move its running statistics (they
+    moved once already, in the forward that is being recomputed)."""
+    _frozen_stats[0] += 1
+    try:
+        yield
+    finally:
+        _frozen_stats[0] -= 1
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -58,6 +77,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if _frozen_stats[0]:
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             kept = self.running_var * (1.0 - self.momentum)

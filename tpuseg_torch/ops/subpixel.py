@@ -18,6 +18,8 @@ This is plain PyTorch, not a kernel: the JAX version has no Pallas call.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -37,12 +39,20 @@ for _a in range(2):
             _W[_a, _dy, _k + _m + 1] += _w
 
 
+@functools.lru_cache(maxsize=None)
+def _w_tensor(device: torch.device) -> torch.Tensor:
+    """``_W`` in float32 on ``device``, copied there once (a captured step
+    cannot copy from pageable host memory)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_W.astype(np.float32)).to(device)
+
+
 def compose_up2x_conv_kernel(kernel: torch.Tensor) -> torch.Tensor:
     """[3,3,Cin,Cout] -> [3,3,Cin,4*Cout] composite kernel (float32).
 
     Output channel group (a*2+b) holds phase (a, b)."""
     k = kernel.to(torch.float32)
-    w = torch.from_numpy(_W.astype(np.float32)).to(k.device)
+    w = _w_tensor(k.device)
     comp = torch.einsum("yxio,ays,bxt->stiabo", k, w, w)
     s, t, ci, _, _, co = comp.shape
     return comp.reshape(s, t, ci, 4 * co)

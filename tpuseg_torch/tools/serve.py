@@ -38,7 +38,8 @@ codec, and /overlay answers 501 (car boxes need cv2).
 Request batching (``--max_batch N --batch_wait_ms W``, off at N=1): the
 collator drains concurrent requests for up to W ms, stacks their
 model-size inputs, pads to the next power-of-2 bucket (each bucket is
-warmed at start), dispatches once and fans the class maps out; a failure
+warmed at start, which on the card captures its CUDA graph), dispatches
+once and fans the class maps out; a failure
 is fanned out to every request of the batch. At N=1 each request is its
 own dispatch.
 """
@@ -148,7 +149,8 @@ class _Batcher:
         self._loop()
 
     def _warm_up(self, input_hw):
-        """Run every bucket once before the first client arrives."""
+        """Run every bucket once before the first client arrives: on the
+        card this captures each bucket's CUDA graph, on this thread."""
         h, w = input_hw
         top, b = self._bucket(self.max_batch), 1
         while True:

@@ -21,6 +21,7 @@ is not read here: at 256 bins the card always runs the kernels. A mesh
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -41,8 +42,16 @@ def _prep(logits: torch.Tensor, targets: torch.Tensor):
 def _pixel_weights(onehot, class_weights, dtype):
     if class_weights is None:
         return None, torch.ones(onehot.shape[:-1], dtype=dtype, device=onehot.device)
-    w = torch.as_tensor(class_weights, dtype=dtype, device=onehot.device)
+    w = _weights_tensor(tuple(float(x) for x in class_weights), dtype, onehot.device)
     return w, torch.sum(onehot * w, dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _weights_tensor(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The class weights on ``device``, copied there once (a captured step
+    cannot copy from pageable host memory)."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def cross_entropy_loss(logits, targets, class_weights=None, label_smoothing: float = 0.0,

@@ -2,11 +2,12 @@
 
 The port of ``tpuseg/train/train_step.py``. The JAX package compiles one
 program per step and threads an immutable ``TrainState`` through it; here
-the state is the model and its optimizer, updated in place, and a step is
-eager PyTorch: the forward in train mode (BatchNorm on batch statistics,
-running statistics updated as flax does), the loss, the backward, then
-``torch.optim.Adam``. Optax's Adam and ``torch.optim.Adam`` compute the
-same update (tests/test_torch_parity.py holds them to rtol 1e-9 in f64).
+the state is the model and its ``Optimizer`` (``train/optim.py``, optax's
+formulas), updated in place, and a step on the card is a replay of a
+captured CUDA graph (``core/graphs.py``): augment, forward in train mode
+(BatchNorm on batch statistics, running statistics moved as flax moves
+them), loss, backward, clip, update and EMA, all in one graph. On the CPU,
+or inside ``graphs.eager()``, the same body runs op by op.
 
 Images enter the steps channels-last ([B, H, W, 3], the JAX layout); the
 model sees an NCHW view of them, and the loss the logits' NHWC view.
@@ -14,20 +15,20 @@ model sees an NCHW view of them, and the loss the logits' NHWC view.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
+from tpuseg_torch.core import graphs
 from tpuseg_torch.data.augment import normalize_images
+from tpuseg_torch.models.blocks import frozen_running_stats
+from tpuseg_torch.ops.resize import resize_bilinear
 from tpuseg_torch.train.loss import cross_entropy_loss
 from tpuseg_torch.train.metrics import confusion_matrix
-
-
-def create_optimizer(model: nn.Module, lr: float = 1.5e-4, b1: float = 0.9,
-                     b2: float = 0.999, eps: float = 1e-8) -> torch.optim.Adam:
-    """Adam with torch's defaults, as the reference (Adam(lr=1.5e-4))."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(b1, b2), eps=eps)
+from tpuseg_torch.train.optim import Optimizer
 
 
 def forward_nhwc(model: nn.Module, images: torch.Tensor) -> torch.Tensor:
@@ -35,66 +36,170 @@ def forward_nhwc(model: nn.Module, images: torch.Tensor) -> torch.Tensor:
     return model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    loss_fn: Optional[Callable] = None,
-                    augment_fn: Optional[Callable] = None) -> Callable:
-    """The step: ``(images f32 [B,H,W,3], labels [B,H,W]) -> {"loss"}``; or,
-    with ``augment_fn``, ``(images u8, masks u8, generator) -> {"loss"}``
-    with the augmentation fused in front. ``loss_fn`` defaults to the
-    reference's plain cross-entropy. The loss comes back as a detached
-    device tensor: reading it is the caller's choice of when to sync. The
-    JAX step's remat, EMA, QAT, distillation, bf16-gradient and mesh
-    options are not ported; the Trainer refuses their config flags."""
+def _recompute_contexts():
+    """remat: the forward runs as usual; its recomputation in the backward
+    leaves the BatchNorm running statistics where the forward put them."""
+    return contextlib.nullcontext(), frozen_running_stats()
+
+
+def _train_forward(model: nn.Module, remat: bool) -> Callable:
+    if not remat:
+        return lambda x: forward_nhwc(model, x)
+    # jax.checkpoint around the forward: activations are recomputed in the
+    # backward instead of stored (the forward draws no random numbers)
+    return lambda x: checkpoint(forward_nhwc, model, x, use_reentrant=False,
+                                preserve_rng_state=False, context_fn=_recompute_contexts)
+
+
+def _check_finite(loss: torch.Tensor, params) -> None:
+    """debug_nans: raise on a loss or gradient that is not finite (before
+    the update, so the state keeps its last finite values)."""
+    if not bool(torch.isfinite(loss)):
+        raise FloatingPointError(f"debug_nans: the loss is {float(loss)}")
+    for name, p in params:
+        if p.grad is not None and not bool(torch.isfinite(p.grad).all()):
+            raise FloatingPointError(f"debug_nans: the gradient of {name} is not finite")
+
+
+def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Callable] = None,
+                   augment_fn: Optional[Callable] = None,
+                   generator: Optional[torch.Generator] = None, remat: bool = False,
+                   debug_nans: bool = False) -> Callable:
+    """One uncaptured step, ``(images, labels) -> loss`` (a detached device
+    scalar). With ``augment_fn`` it takes uint8 images and masks and
+    augments them first, drawing from ``generator``."""
     compute_loss = loss_fn or cross_entropy_loss
+    forward = _train_forward(model, remat)
+    named = list(model.named_parameters())
 
-    def train_step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def body(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        if augment_fn is not None:
+            images, labels = augment_fn(images, labels, generator)
         model.train()
-        loss = compute_loss(forward_nhwc(model, images), labels)
-        optimizer.zero_grad(set_to_none=True)
+        loss = compute_loss(forward(images), labels)
+        optimizer.zero_grad()
         loss.backward()
+        if debug_nans:
+            _check_finite(loss, named)
         optimizer.step()
-        return {"loss": loss.detach()}
+        return loss.detach()
 
-    if augment_fn is None:
-        return train_step
-
-    def fused_step(images_u8: torch.Tensor, masks_u8: torch.Tensor,
-                   generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        x, y = augment_fn(images_u8, masks_u8, generator)
-        return train_step(x, y)
-
-    return fused_step
+    return body
 
 
-def make_eval_step(model: nn.Module, num_classes: int,
-                   normalize: Optional[Tuple] = None, tta: str = "") -> Callable:
+def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Callable] = None,
+                    augment_fn: Optional[Callable] = None,
+                    generator: Optional[torch.Generator] = None, remat: bool = False,
+                    debug_nans: bool = False) -> Callable:
+    """The step: ``(images f32 [B,H,W,3], labels [B,H,W]) -> {"loss"}``; or,
+    with ``augment_fn``, ``(images u8, masks u8) -> {"loss"}`` with the
+    augmentation (drawing from ``generator``) fused in front. ``loss_fn``
+    defaults to the reference's plain cross-entropy; ``remat`` recomputes
+    the forward in the backward. On the card each call replays one CUDA
+    graph per input shape. ``debug_nans`` runs op by op (as JAX's debug
+    mode does) and raises FloatingPointError on a loss or gradient that is
+    not finite. The loss comes back as a device tensor, overwritten by the
+    next call: reading it is the caller's choice of when to sync."""
+    body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans)
+
+    def step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"loss": body(images, labels)}
+
+    if debug_nans:
+        return step
+    return graphs.Captured(step, "train_step", _generators(generator))
+
+
+def make_train_multi_step(k: int, model: nn.Module, optimizer: Optimizer,
+                          loss_fn: Optional[Callable] = None,
+                          augment_fn: Optional[Callable] = None,
+                          generator: Optional[torch.Generator] = None, remat: bool = False,
+                          debug_nans: bool = False) -> Callable:
+    """K steps per dispatch, the port of ``make_train_multi_step``:
+    ``(images [K, B, ...], labels [K, B, ...]) -> {"loss": [K]}``, the same
+    arithmetic as K calls of the single step, captured as one graph."""
+    body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans)
+
+    def multi_step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if images.shape[0] != k or labels.shape[0] != k:
+            raise ValueError(f"multi step of {k}: got stacks of {images.shape[0]} and "
+                             f"{labels.shape[0]}")
+        return {"loss": torch.stack([body(images[i], labels[i]) for i in range(k)])}
+
+    if debug_nans:
+        return multi_step
+    return graphs.Captured(multi_step, f"train_multi_step_{k}", _generators(generator))
+
+
+def _generators(generator: Optional[torch.Generator]):
+    """The private generator a captured step must register, if any."""
+    if generator is None or generator.device.type != "cuda":
+        return ()
+    return (generator,)
+
+
+def make_eval_step(model: nn.Module, num_classes: int, normalize: Optional[Tuple] = None,
+                   tta: str = "", ms_scales: Tuple[float, ...] = (0.75, 1.25),
+                   ms_divisor: int = 32) -> Callable:
     """``(images, labels, n_valid) -> {"loss_sum", "n", "confusion"}``, all
-    device tensors, for the first ``n_valid`` samples of the batch (the
-    pipeline zero-pads the last one). ``normalize=(mean, std)``: the step
-    takes raw uint8 images and normalizes them itself. The per-sample loss
-    is the mean over pixels of the CE against a one-hot target, so a label
-    outside [0, C) adds 0, as in the JAX package; the confusion matrix
-    counts no such pixel. Only ``tta=""`` is ported (A7)."""
+    device tensors. ``n_valid`` (an int or a device scalar) masks the
+    zero-padded tail samples as the JAX step does: their pixels go to class
+    C in both prediction and target, and the [C+1, C+1] matrix is cut back
+    to [C, C], so every batch has one shape. ``normalize=(mean, std)``: the
+    step takes raw uint8 images and normalizes them itself. The per-sample
+    loss is the mean over pixels of the CE against a one-hot target, so a
+    label outside [0, C) adds 0; the confusion matrix counts no such pixel.
+
+    ``tta``: "" | "flip" | "ms" | "flip+ms", JAX's ladder: flip averages the
+    logits with those of the W-mirrored input, mirrored back; ms averages,
+    in fp32, the logits at each of ``ms_scales`` (snapped to multiples of
+    ``ms_divisor``; a scale that snaps to the input size is skipped),
+    bilinearly resized back. On the card each batch shape replays one
+    graph."""
     if tta not in ("", "flip", "ms", "flip+ms"):
         raise ValueError(f"unknown tta mode {tta!r} (expected ''|'flip'|'ms'|'flip+ms')")
-    if tta:
-        raise NotImplementedError(f"eval tta={tta!r} is not ported yet (ROADMAP.md A7, train)")
+
+    def fwd_maybe_flip(x):
+        out = forward_nhwc(model, x)
+        if "flip" in tta:
+            out = 0.5 * (out + torch.flip(forward_nhwc(model, torch.flip(x, [2])), [2]))
+        return out
 
     @torch.inference_mode()
-    def eval_step(images: torch.Tensor, labels: torch.Tensor, n_valid: int):
-        images, labels = images[:n_valid], labels[:n_valid].to(torch.int64)
+    def eval_step(images: torch.Tensor, labels: torch.Tensor, n_valid):
         if normalize is not None:
             images = normalize_images(images, normalize[0], normalize[1])
+        labels = labels.to(torch.int64)
         was_training = model.training
         model.eval()
-        logits = forward_nhwc(model, images).to(torch.float32)
+        logits = fwd_maybe_flip(images)
+        if "ms" in tta:
+            h, w = images.shape[1], images.shape[2]
+            d = int(ms_divisor)
+            acc = logits.to(torch.float32)
+            n_sc = 1
+            for s in ms_scales:
+                hs = max(d, int(round(h * s / d)) * d)
+                ws = max(d, int(round(w * s / d)) * d)
+                if (hs, ws) == (h, w):
+                    continue
+                ls = fwd_maybe_flip(resize_bilinear(images.to(torch.float32), hs, ws))
+                acc = acc + resize_bilinear(ls.to(torch.float32), h, w)
+                n_sc += 1
+            logits = acc / float(n_sc)
         model.train(was_training)
-        logp = torch.log_softmax(logits, dim=-1)
+        b = images.shape[0]
+        valid = torch.arange(b, device=logits.device) < n_valid
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         classes = torch.arange(num_classes, device=logits.device)
         onehot = (labels[..., None] == classes).to(logp.dtype)
         per_sample = -(logp * onehot).sum(-1).mean(dim=(1, 2))
-        return {"loss_sum": per_sample.sum(),
-                "n": torch.tensor(float(n_valid), device=logits.device),
-                "confusion": confusion_matrix(logits.argmax(-1), labels, num_classes)}
+        preds = logits.argmax(-1)
+        vmask = valid[:, None, None]
+        preds_m = torch.where(vmask, preds, num_classes)
+        labels_m = torch.where(vmask, labels, num_classes)
+        cm = confusion_matrix(preds_m, labels_m, num_classes + 1)[:num_classes, :num_classes]
+        return {"loss_sum": (per_sample * valid.to(per_sample.dtype)).sum(),
+                "n": valid.to(torch.float32).sum(), "confusion": cm}
 
-    return eval_step
+    return graphs.Captured(eval_step, f"eval_step{'_' + tta if tta else ''}")

@@ -1,31 +1,41 @@
 """The training driver.
 
 The port of ``tpuseg/train/trainer.py``: config -> data pipeline, model,
-Adam, loss, the fused augment+train step and the eval step; then the epoch
-loop with a one-step-lagged loss read (the host reads step k-1's loss
-after it has queued step k, so it never waits on an idle card), the
-epoch-end record (eval, best tracking, history.jsonl, checkpoint), resume,
-and a checkpoint on SIGTERM.
+the optimizer chain (``train/optim.py``: adam, adamw or sgd, the cosine
+schedule, the global-norm clip, MultiSteps, EMA), loss, the fused
+augment+train step and the eval step; then the epoch loop with a
+one-dispatch-lagged loss read (the host reads dispatch k-1's losses after
+it has queued dispatch k, so it never waits on an idle card), the
+epoch-end record (eval on the EMA weights when EMA is on, best tracking,
+history.jsonl, TensorBoard scalars, checkpoint), resume, and a checkpoint
+on SIGTERM.
+
+On the card every dispatch is a replay of a captured CUDA graph
+(``core/graphs.py``), the counterpart of the JAX package's jitted step:
+``train.steps_per_dispatch=K`` captures K steps into one graph, and steps
+per epoch are rounded up to whole groups of K, as in the JAX package.
+``debug_nans`` runs the steps op by op and raises FloatingPointError on a
+loss or gradient that is not finite; ``profile_dir`` traces ``train()``
+with ``torch.profiler``.
 
 Checkpoints are the port's own format (``tpuseg_torch.core.checkpoint``):
-model, optimizer, step, epoch and sampler state under
+model, optimizer, EMA (its own key), step, epoch and sampler state under
 ``<checkpoint_dir>/step_<N>.pt``, ``keep_checkpoints`` of them, plus the
 best val-mIoU one under ``<checkpoint_dir>/best/`` and ``best.json``.
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
-with no card and no such request the constructor raises. What the
-default configuration does not run raises NotImplementedError naming its
-ROADMAP.md item. ``train.steps_per_dispatch`` is accepted and has no
-effect: PyTorch dispatches each step eagerly (A1).
+with no card and no such request the constructor raises. What the port
+does not run yet raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -41,28 +51,22 @@ from tpuseg_torch.models.registry import build_model, validate_input_size
 from tpuseg_torch.train.loss import make_loss_fn
 from tpuseg_torch.train.metrics import (iou_from_confusion, mean_iou,
                                         pixel_accuracy_from_confusion)
-from tpuseg_torch.train.train_step import (create_optimizer, make_eval_step,
+from tpuseg_torch.train.optim import build_optimizer
+from tpuseg_torch.train.train_step import (make_eval_step, make_train_multi_step,
                                            make_train_step)
 
 log = logging.getLogger(__name__)
+
+
+def _loss_list(loss: torch.Tensor) -> List[float]:
+    """A scalar (one step) or [K] (K steps) device loss -> python floats."""
+    return np.atleast_1d(loss.cpu().numpy()).tolist()
 
 
 def _unported_options(cfg: Config) -> List[tuple]:
     """(is set, what, ROADMAP item) for each option the port cannot run yet."""
     t = cfg.train
     return [
-        (t.optimizer != "adam", f"optimizer={t.optimizer!r}", "A7, train"),
-        (bool(t.lr_schedule), f"lr_schedule={t.lr_schedule!r}", "A7, train"),
-        (bool(t.mu_dtype), "mu_dtype", "A7, train"),
-        (t.grads_bf16, "grads_bf16", "A7, train"),
-        (t.ema_decay > 0, "ema_decay", "A7, train"),
-        (t.grad_accum > 1, "grad_accum", "A7, train"),
-        (t.grad_clip_norm > 0, "grad_clip_norm", "A7, train"),
-        (t.remat, "remat", "A7, train"),
-        (bool(t.eval_tta), "eval_tta", "A7, train"),
-        (t.debug_nans, "debug_nans", "A7, train"),
-        (bool(t.tensorboard_dir), "tensorboard_dir", "A7, train"),
-        (bool(t.profile_dir), "profile_dir", "A7, train"),
         (t.qat, "qat", "A11, QAT"),
         (bool(t.distill_checkpoint), "distillation (distill_checkpoint)",
          "A11, distillation"),
@@ -98,22 +102,42 @@ class Trainer:
 
         self.model = build_model(cfg.model, seed=cfg.train.seed).to(
             self.device, memory_format=torch.channels_last)
-        if cfg.train.init_checkpoint:
-            self._load_init_checkpoint(cfg.train.init_checkpoint)
-        self.optimizer = create_optimizer(self.model, lr=cfg.train.lr, b1=cfg.train.b1,
-                                          b2=cfg.train.b2, eps=cfg.train.eps)
+        t = cfg.train
+        # the EMA is seeded from the parameters here, before init_checkpoint
+        # loads, as create_train_state seeds it in the JAX package
+        self.optimizer = build_optimizer(self.model, t, t.epochs * self.steps_per_epoch())
+        if t.ema_decay > 0:
+            self._warn_ema_horizon()
+        if t.init_checkpoint:
+            self._load_init_checkpoint(t.init_checkpoint)
         self.augment = make_augment_fn(
             cfg.data.height, cfg.data.width, heavy=cfg.data.heavy_augment,
             augment=cfg.data.augment, mean=cfg.data.normalize_mean,
             std=cfg.data.normalize_std)
         self.aug_generator = torch.Generator(device=self.device).manual_seed(
             cfg.data.seed + 1)
-        self.train_step = make_train_step(self.model, self.optimizer,
-                                          loss_fn=self._build_loss(),
-                                          augment_fn=self.augment)
+        self.steps_per_dispatch = max(1, t.steps_per_dispatch)
+        step_kw = dict(loss_fn=self._build_loss(), augment_fn=self.augment,
+                       generator=self.aug_generator, remat=t.remat, debug_nans=t.debug_nans)
+        if self.steps_per_dispatch > 1:
+            self.train_step = make_train_multi_step(self.steps_per_dispatch, self.model,
+                                                    self.optimizer, **step_kw)
+        else:
+            self.train_step = make_train_step(self.model, self.optimizer, **step_kw)
         self.eval_step = make_eval_step(
             self.model, cfg.model.num_classes,
-            normalize=(cfg.data.normalize_mean, cfg.data.normalize_std))
+            normalize=(cfg.data.normalize_mean, cfg.data.normalize_std),
+            tta=t.eval_tta, ms_scales=t.eval_tta_scales)
+        self.profiler = None        # the torch.profiler of the last profiled train()
+        self._tb = None
+        if t.tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                raise NotImplementedError(
+                    "tensorboard_dir needs torch.utils.tensorboard (the tensorboard "
+                    "package), which does not import here (ROADMAP.md A7, train)") from e
+            self._tb = SummaryWriter(t.tensorboard_dir)
 
         self.ckpt: Optional[CheckpointManager] = None
         self.best_ckpt: Optional[CheckpointManager] = None
@@ -137,6 +161,29 @@ class Trainer:
         self._es_stale = 0
         self._stop_early = False
         self._preempted = False
+
+    def _warn_ema_horizon(self) -> None:
+        """A decay whose ~1/(1-d)-step time constant exceeds the run leaves
+        the served EMA weights dominated by the random init (eval, best and
+        serving use them): warn, as the JAX Trainer does."""
+        t = self.cfg.train
+        total = t.epochs * self.steps_per_epoch()
+        horizon = 1.0 / max(1e-9, 1.0 - t.ema_decay)
+        if total < 3 * horizon:
+            log.warning(
+                "ema_decay=%g has a ~%d-step time constant but this run is only %d "
+                "steps: the served EMA tree will lag far behind the raw weights. Pick "
+                "decay so 1/(1-decay) is well under the step count (e.g. %.3g).",
+                t.ema_decay, int(horizon), total, max(0.0, 1.0 - 10.0 / max(total, 10)))
+
+    def _tb_scalars(self, rec: Dict) -> None:
+        """The epoch record's numbers as TensorBoard scalars at its step."""
+        if self._tb is None:
+            return
+        for key, value in rec.items():
+            if isinstance(value, (int, float)) and key != "step":
+                self._tb.add_scalar(key, value, global_step=rec["step"])
+        self._tb.flush()
 
     def _build_loss(self):
         """None => the step's default (plain CE); else make_loss_fn's loss."""
@@ -166,9 +213,15 @@ class Trainer:
     # -- checkpointing -------------------------------------------------------
 
     def _checkpoint_payload(self) -> dict:
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "epoch": self.epoch,
-                "sampler": self.pipeline.state()["sampler"]}
+        payload = {"model": self.model.state_dict(),
+                   "optimizer": self.optimizer.state_dict(),
+                   "step": self.step, "epoch": self.epoch,
+                   "sampler": self.pipeline.state()["sampler"]}
+        if self.optimizer.ema_decay > 0:
+            # its own key, as the JAX package's ema_params: EMA-off
+            # checkpoints keep their shape
+            payload["ema"] = self.optimizer.ema_state_dict(self.model)
+        return payload
 
     def save_checkpoint(self) -> None:
         if self.ckpt is not None:
@@ -176,12 +229,22 @@ class Trainer:
 
     def maybe_resume(self) -> bool:
         """Restore the latest checkpoint of ``checkpoint_dir``; False when
-        there is none."""
+        there is none. Everything is copied into the existing tensors, so
+        a step captured before the resume runs on the restored state."""
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return False
         saved = self.ckpt.restore(map_location=self.device)
         self.model.load_state_dict(saved["model"])
         self.optimizer.load_state_dict(saved["optimizer"])
+        if self.optimizer.ema_decay > 0:
+            if "ema" in saved:
+                self.optimizer.load_ema(self.model, saved["ema"])
+            else:
+                log.info("checkpoint has no EMA tree; seeding EMA from restored params")
+                self.optimizer.load_ema(self.model, dict(self.model.named_parameters()))
+        elif "ema" in saved:
+            log.warning("checkpoint carries an EMA tree but --train.ema_decay=0; "
+                        "restoring raw params and discarding the EMA average")
         self.step, self.epoch = int(saved["step"]), int(saved["epoch"])
         self.pipeline.restore({"sampler": saved["sampler"]})
         best_json = os.path.join(self.cfg.train.checkpoint_dir, "best.json")
@@ -224,15 +287,22 @@ class Trainer:
         epochs = epochs if epochs is not None else cfg.epochs
         self._preempted = False
         restore_signal = self._install_preemption_handler()
-        spe = self.steps_per_epoch()
+        k = self.steps_per_dispatch
+        # round steps/epoch up to a whole number of dispatch groups
+        spe = -(-self.steps_per_epoch() // k) * k
         if cfg.resume:
             self.maybe_resume()
         start_epoch = self.epoch
+        profiler = self._start_profiler()
         try:
             for epoch in range(start_epoch, epochs):
                 t0 = time.perf_counter()
-                # a mid-epoch (preemption) checkpoint resumes into its epoch
-                done = min(max(0, self.step - epoch * spe), spe) if epoch == start_epoch else 0
+                # a mid-epoch (preemption) checkpoint resumes into its epoch,
+                # at a whole dispatch group
+                done = 0
+                if epoch == start_epoch:
+                    done = min(max(0, self.step - epoch * spe), spe)
+                    done -= done % k
                 steps_this = spe - done
                 if steps_this <= 0:
                     # resumed exactly at an epoch boundary whose epoch-end never ran
@@ -256,12 +326,39 @@ class Trainer:
                     break
         finally:
             restore_signal()
+            self._stop_profiler(profiler)
         return self.history
+
+    def _start_profiler(self):
+        """profile_dir: torch.profiler over ``train()`` (CPU, and CUDA on the card)."""
+        if not self.cfg.train.profile_dir:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.__enter__()
+        return prof
+
+    def _stop_profiler(self, prof) -> None:
+        """Stop the trace and write it as ``<profile_dir>/train_<pid>_step<N>.trace.json``."""
+        if prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        os.makedirs(self.cfg.train.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.cfg.train.profile_dir, f"train_{os.getpid()}_step{self.step}.trace.json"))
+        self.profiler = prof
 
     def _run_epoch_steps(self, steps: int, epoch: int, epochs: int) -> List[float]:
         cfg = self.cfg.train
+        k = self.steps_per_dispatch
         losses: List[float] = []
-        pending = None      # the previous step's loss, read one step late
+        pending = None      # the previous dispatch's losses, read one dispatch late
         batch_gen = self.pipeline.train_batches(steps)
         batches = batch_gen
         if cfg.progress:
@@ -271,14 +368,25 @@ class Trainer:
                 batches = tqdm(batch_gen, total=steps, desc=f"epoch {epoch + 1}/{epochs}")
             except ImportError:  # pragma: no cover
                 pass
+        group: List = []
         try:
             for images, masks in batches:
-                metrics = self.train_step(images, masks, self.aug_generator)
-                self.step += 1
+                group.append((images, masks))
+                if len(group) < k:
+                    continue
+                if k == 1:
+                    metrics = self.train_step(images, masks)
+                else:
+                    metrics = self.train_step(torch.stack([g[0] for g in group]),
+                                              torch.stack([g[1] for g in group]))
+                group = []
+                self.step += k
                 if pending is not None:
-                    losses.append(float(pending))
-                pending = metrics["loss"]
-                if cfg.log_every and self.step % cfg.log_every == 0 and losses:
+                    losses.extend(_loss_list(pending))
+                # a replay's loss is the graph's output tensor, which the next
+                # replay overwrites: keep a copy (queued before that replay)
+                pending = metrics["loss"].clone()
+                if cfg.log_every and self.step % cfg.log_every < k and losses:
                     log.info("step %d | loss %.4f", self.step, losses[-1])
                 if self._preempted:
                     break
@@ -286,7 +394,7 @@ class Trainer:
             # stop the producer before anything reads the sampler's state
             batch_gen.close()
         if pending is not None:
-            losses.append(float(pending))
+            losses.extend(_loss_list(pending))
         self.step_losses.extend(losses)
         return losses
 
@@ -325,15 +433,43 @@ class Trainer:
         if self._history_path:
             with open(self._history_path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+        self._tb_scalars(rec)
         if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
             self.save_checkpoint()
 
+    @contextlib.contextmanager
+    def _eval_weights(self) -> Iterator[None]:
+        """With EMA on, the EMA parameters stand in the model's parameter
+        tensors (copied in place, so the captured eval step reads them)
+        until the block ends; the BatchNorm statistics stay shared, as in
+        the JAX package."""
+        if self.optimizer.ema_decay <= 0:
+            yield
+            return
+        params = list(self.model.parameters())
+        with torch.no_grad():
+            raw = [p.detach().clone() for p in params]
+            for p, e in zip(params, self.optimizer.state["ema"]):
+                p.copy_(e)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, r in zip(params, raw):
+                    p.copy_(r)
+
     def evaluate(self) -> Dict[str, float]:
-        """Full pass over the val split: loss, pixel acc, per-class IoU, mIoU."""
+        """Full pass over the val split: loss, pixel acc, per-class IoU, mIoU,
+        on the EMA weights when EMA is on (eval and best tracking select
+        the weights that are served)."""
         tot = None
-        for images, masks, n_valid in self.pipeline.eval_batches():
-            out = self.eval_step(images, masks, n_valid)
-            tot = out if tot is None else {k: tot[k] + out[k] for k in out}
+        with self._eval_weights():
+            for images, masks, n_valid in self.pipeline.eval_batches():
+                n = torch.tensor(n_valid, device=self.device)
+                out = self.eval_step(images, masks, n)
+                # a replay's outputs are overwritten by the next: sum into copies
+                tot = ({k: v.clone() for k, v in out.items()} if tot is None
+                       else {k: tot[k] + out[k] for k in out})
         if tot is None or float(tot["n"]) == 0:
             return {}
         cm = tot["confusion"].cpu().numpy()
