@@ -90,7 +90,24 @@ printing one JSON line; any failure raises and exits nonzero:
              times, the step's stages, and a 3-step A/B of the kernel loss
              against one built on the plain versions, under deterministic
              algorithms: the replayed steps' gradients (read after each
-             replay) and the final parameters bit-equal.
+             replay) and the final parameters bit-equal;
+7. train_packed — 1024 synthetic scenes packed at 256x128 with
+             ``tpuseg_torch.tools.pack_dataset`` (every packed sample
+             bit-equal to the source; the native gather loaded, a batch of
+             it into pinned buffers bit-equal to numpy's), then the same
+             model trained from the packed directory through
+             ``tpuseg_torch.main`` with --data.heavy_augment=true
+             --train.loss=ce+lovasz --train.class_weights=auto (80 steps,
+             a val split): both Lovász kernels launch once per step, the
+             loss falls (last 10 below first 10), a val mIoU is recorded,
+             the resolved weights equal resolve_auto_class_weights over the
+             Trainer's own split; a carla source with cv2 refused raises
+             naming the packed route; the stages (one-gather host batch,
+             upload, the heavy augment eager and alone, the captured step)
+             and the steady p50 step and images/s beside the train phase's
+             synthetic ones; 3 captured steps with the heavy augment
+             bit-equal to 3 under ``graphs.eager()`` (deterministic
+             algorithms; the Lovász value within its atomics' tolerance).
 
 The serving phases run as on a host without cv2, the path the port is
 built for: a meta-path finder refuses cv2 for the whole run (the device
@@ -100,7 +117,8 @@ boxes off.
 
 Then the kernels summary line, nvidia-smi's line, and, last, the result
 line {"ok": true, "device": {...}}. A kernel's ``launches`` there are its
-launches on the serving (serve and video phases) or training path; fused_inverted_residual runs on
+launches on the serving (serve and video phases) or training path (train
+and train_packed phases); fused_inverted_residual runs on
 no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
 result. fp32 comparisons run with TF32 off for both cuDNN and matmul.
@@ -192,6 +210,12 @@ ERRSUM_RTOL = 1e-4
 # so the error-sum tolerance carries over to about 1e-4 of a value <= 1
 LOVASZ_VALUE_ATOL = 1e-4
 TRAIN_STEPS, VAL_SPLIT, TIMED_STEPS, AB_STEPS = 80, 0.0625, 30, 3
+# the train_packed phase: 1024 synthetic scenes packed at 256x128 (128 MiB),
+# trained with the heavy augment, CE + Lovász and auto class weights
+PACKED_SAMPLES = 1024
+PACKED_FLAGS = ["--data.heavy_augment=true", "--train.loss=ce+lovasz",
+                "--train.class_weights=auto"]
+ROOT = Path(__file__).resolve().parent
 # decoder up blocks at batch 8, 256x128 input: (skip [B,2H,2W,Cs], x [B,H,W,Cx], Cout)
 UPCONCAT_SHAPES = {
     "up1": ((BATCH, 8, 16, 64), (BATCH, 4, 8, 1280), 256),
@@ -1392,7 +1416,163 @@ def phase_train(perf) -> dict:
            "lovasz_kernels_isolated_ms_over_p50_step": kernel_ms / p50,
            "ab": ab}
     emit(out)
-    return counts
+    return out
+
+
+def check_packed(src, ref, n: int) -> dict:
+    """Every packed sample bit-equal to the source it was packed from; one
+    batch gathered into pinned buffers (the native gather, which must
+    have loaded) bit-equal to numpy's fancy index."""
+    from tpuseg_torch.ops import native_loader
+
+    if len(src) != n:
+        raise AssertionError(f"train_packed: {len(src)} packed samples, want {n}")
+    differ = [i for i in range(n)
+              if not all(np.array_equal(a, b) for a, b in zip(src.load(i), ref.load(i)))]
+    if differ:
+        raise AssertionError(f"train_packed: packed samples {differ[:8]} differ from the source")
+    lib = native_loader.library_path()
+    if lib is None:
+        raise AssertionError("train_packed: the native gather did not load: "
+                             f"{native_loader.unavailable_reason()}")
+    idx = np.random.RandomState(SEED).randint(0, n, BATCH).astype(np.int64)
+    img = torch.empty((BATCH, *src.images.shape[1:]), dtype=torch.uint8, pin_memory=True)
+    msk = torch.empty((BATCH, *src.masks.shape[1:]), dtype=torch.uint8, pin_memory=True)
+    src.load_batch(idx, img.numpy(), msk.numpy())
+    if not (img.is_pinned() and np.array_equal(img.numpy(), src.images[idx])
+            and np.array_equal(msk.numpy(), src.masks[idx])):
+        raise AssertionError("train_packed: the pinned native gather differs from numpy's")
+    return {"samples_bit_equal": n, "native_loader": str(Path(lib).relative_to(ROOT)),
+            "pinned_gather_bit_equal": True}
+
+
+def cv2_refusal(directory: str) -> str:
+    """A directory source with cv2 refused raises the named error."""
+    from tpuseg_torch.configs import DatasetSourceConfig
+    from tpuseg_torch.data.sources import build_source
+
+    try:
+        build_source(DatasetSourceConfig(kind="carla", img_dir=directory, mask_dir=directory),
+                     MODEL_HW[1], MODEL_HW[0])
+    except ImportError as e:
+        msg = str(e)
+        if 'kind="packed"' in msg and "python -m tpuseg_torch.tools.pack_dataset" in msg:
+            return msg
+        raise AssertionError(f"train_packed: the cv2 refusal does not name the packed route: "
+                             f"{msg}") from e
+    raise AssertionError("train_packed: a carla source built with cv2 refused")
+
+
+def phase_train_packed(synthetic: dict) -> dict:
+    """The slice's training from a packed dataset (see the module)."""
+    from tpuseg_torch.data.class_stats import resolve_auto_class_weights
+    from tpuseg_torch.data.sources import PackedSource, SyntheticSource
+    from tpuseg_torch.main import main as train_main
+    from tpuseg_torch.tools import pack_dataset
+
+    h, w = MODEL_HW
+    out = {"phase": "train_packed", "samples": PACKED_SAMPLES}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as packed:
+        t0 = time.perf_counter()
+        if pack_dataset.main(["--kind", "synthetic", "--num_samples", str(PACKED_SAMPLES),
+                              "--out", packed, "--width", str(w), "--height", str(h)]) != 0:
+            raise AssertionError("train_packed: pack_dataset failed")
+        out["pack_s"] = time.perf_counter() - t0
+        src = PackedSource(packed, w, h)
+        out["packed_mb"] = (src.images.nbytes + src.masks.nbytes) / 2**20
+        out.update(check_packed(src, SyntheticSource(PACKED_SAMPLES, w, h), PACKED_SAMPLES))
+        out["cv2_refusal"] = cv2_refusal(packed)
+
+        flags = [f"--data.sources={json.dumps([{'kind': 'packed', 'packed_dir': packed, 'weight': 1.0}])}",
+                 *PACKED_FLAGS]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr = train_main(flags + ["--train.epochs=1", f"--train.steps_per_epoch={TRAIN_STEPS}",
+                                 f"--data.val_split={VAL_SPLIT}", "--train.checkpoint_dir=",
+                                 "--train.log_every=0"])
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
+        want = {"argmax_colorize": 0, "upsample2x_argmax": 0, "fused_upsample_concat_conv": 0,
+                "lovasz_histograms": TRAIN_STEPS, "lovasz_lookup": TRAIN_STEPS,
+                "fused_inverted_residual": 0}
+        if counts != want or tr.step != TRAIN_STEPS:
+            raise AssertionError(f"train_packed launches {counts} after {tr.step} steps, "
+                                 f"want {want}")
+        got_cfg = (cfg.model.name, cfg.model.width_mult, cfg.train.batch_size,
+                   (cfg.data.height, cfg.data.width), cfg.train.loss, cfg.data.heavy_augment,
+                   type(tr.combined.sources[0]).__name__)
+        if got_cfg != ("mobilenetv2_unet", 1.0, BATCH, MODEL_HW, "ce+lovasz", True,
+                       "PackedSource"):
+            raise AssertionError(f"train_packed ran {got_cfg}")
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_packed losses {losses}")
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        if not last < first:
+            raise AssertionError(f"train_packed: loss did not fall: first 10 {first}, "
+                                 f"last 10 {last}")
+        if not math.isfinite(rec.get("val_miou", float("nan"))):
+            raise AssertionError(f"train_packed: no val mIoU in {rec}")
+        weights = resolve_auto_class_weights(tr.combined, cfg.model.num_classes, "auto")
+        if tr.class_weights != weights:
+            raise AssertionError(f"train_packed: the Trainer resolved {tr.class_weights}, "
+                                 f"resolve_auto_class_weights gives {weights}")
+        out.update({"launches": counts, "steps": tr.step, "loss_first10": first,
+                    "loss_last10": last, "losses_every10": losses[::10],
+                    "val_miou": rec["val_miou"], "class_weights": list(weights),
+                    "epoch_imgs_per_s": rec["imgs_per_sec"]})
+
+        # the stages, synchronized apart: the host batch (sampler, pinned
+        # buffers, one gather), the upload, the heavy augment eager and
+        # alone, the captured step
+        pipe, bs = tr.pipeline, cfg.train.batch_size
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        st = {"host_batch": [], "upload": [], "heavy_augment_eager": [], "captured_step": []}
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            host = pipe._assemble(pipe.sampler.sample(bs))
+            t1 = time.perf_counter()
+            dev = pipe._put(host)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            tr.augment(*dev, g)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            tr.train_step(*dev)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for k, dt in zip(st, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                st[k].append(dt * 1e3)
+        # steady steps: the loader thread feeding the captured step
+        lat = []
+        gen = pipe.train_batches(TIMED_STEPS)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(gen, None)
+            if batch is None:
+                break
+            tr.train_step(*batch)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        steady = lat[3:]
+        del tr, gen
+        packed_t = {"stages_ms": {k: float(np.median(v[3:])) for k, v in st.items()},
+                    "p50_step_ms": float(np.median(steady)) * 1e3,
+                    "steady_imgs_per_s": bs * len(steady) / sum(steady)}
+        out["timing"] = {"packed": packed_t, "synthetic": {
+            k: synthetic[k] for k in ("stages_ms", "p50_step_ms", "steady_imgs_per_s")}}
+
+        # captured against eager, deterministic algorithms, from one state
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            out["captured_vs_eager"] = train_ab(flags, "packed heavy", lovasz=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+    emit(out)
+    return out
 
 
 # the graphs phase: the options configuration of its second train A/B, the
@@ -1405,13 +1585,15 @@ GRAPH_AB_STEPS, GRAPH_TIMED, GRAPH_K, PROFILE_STEPS = 3, 20, 4, 5
 
 def graph_trainer(flags):
     """A Trainer of the slice's configuration (full width, batch 8,
-    256x128, synthetic scenes), with ``flags`` on top; no checkpoints."""
+    256x128, synthetic scenes unless ``flags`` name sources), with
+    ``flags`` on top; no checkpoints."""
     from tpuseg_torch.main import default_sources
     from tpuseg_torch.train.trainer import Trainer
 
     cfg = load_config(["--train.checkpoint_dir=", "--data.val_split=0", "--train.epochs=1",
                        "--train.log_every=0", *flags])
-    cfg.data.sources = default_sources(cfg)
+    if not cfg.data.sources:
+        cfg.data.sources = default_sources(cfg)
     return Trainer(cfg)
 
 
@@ -1804,7 +1986,9 @@ def main() -> int:
         video_counts = phase_video(pth)
         phase_http(pth, frames)
         phase_graphs(pth, frames)
-    train_counts = phase_train(perf)
+    train = phase_train(perf)
+    packed = phase_train_packed(train)
+    train_counts = {k: train["launches"][k] + packed["launches"][k] for k in train["launches"]}
     # the serving paths: the serve phase's batches and the video phase's
     launches = {"argmax_colorize": serve_counts["argmax_colorize"]
                 + video_counts["argmax_colorize"],

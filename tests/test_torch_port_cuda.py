@@ -9,6 +9,8 @@ card, whose Python has no JAX (which ``tests/conftest.py`` imports):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -402,3 +404,56 @@ def test_morph_close_on_the_card_equals_the_cpu(card, k):
     masks[:, 0, :] = masks[:, :, -1] = True
     got = morph_close(masks.cuda(), k).cpu()
     assert torch.equal(got, morph_close(masks, k))
+
+
+def test_heavy_augment_captured_equals_eager(card):
+    """The heavy augment inside a captured graph, with its generator
+    registered: three calls (the first eager, then two replays) give the
+    outputs and the generator state of three eager calls, bit for bit."""
+    from tpuseg_torch.core import graphs
+    from tpuseg_torch.data.augment import make_augment_fn
+
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.randint(0, 256, (8, 128, 256, 3)).astype(np.uint8)).cuda()
+    masks = torch.from_numpy(rng.randint(0, 10, (8, 128, 256)).astype(np.uint8)).cuda()
+    fn = make_augment_fn(128, 256, heavy=True)
+
+    def run(captured):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        step = graphs.Captured(lambda x, y: fn(x, y, g), "heavy_augment", generators=(g,))
+        outs = []
+        with contextlib.nullcontext() if captured else graphs.eager():
+            for _ in range(3):
+                outs.append(tuple(t.clone() for t in step(imgs, masks)))
+        return outs, g.get_state(), step.replays()
+
+    (cap, cap_state, replays), (eag, eag_state, _) = run(True), run(False)
+    assert replays == 2
+    for (cx, cy), (ex, ey) in zip(cap, eag):
+        assert torch.equal(cx, ex) and torch.equal(cy, ey)
+    assert not torch.equal(cap[1][0], cap[2][0])
+    assert torch.equal(cap_state, eag_state)
+
+
+def test_the_packed_gather_into_pinned_memory_equals_numpy(card, tmp_path):
+    from tpuseg_torch.data.combined import CombinedDataset
+    from tpuseg_torch.data.pipeline import InputPipeline
+    from tpuseg_torch.data.sources import PackedSource
+    from tpuseg_torch.ops import native_loader
+    from tpuseg_torch.tools import pack_dataset
+
+    assert pack_dataset.main(["--kind", "synthetic", "--num_samples", "24", "--out",
+                              str(tmp_path), "--width", "64", "--height", "32"]) == 0
+    assert native_loader.library_path() is not None, native_loader.unavailable_reason()
+    src = PackedSource(str(tmp_path), 64, 32)
+    pipe = InputPipeline(CombinedDataset([src]), batch_size=8, height=32, width=64,
+                         device="cuda")
+    picks = pipe.sampler.sample(8)
+    imgs, msks = pipe._assemble(picks)
+    assert imgs.is_pinned() and msks.is_pinned()
+    idx = pipe.combined.train_indices[0][[p for _, p in picks]]
+    np.testing.assert_array_equal(imgs.numpy(), np.asarray(src.images)[idx])
+    np.testing.assert_array_equal(msks.numpy(), np.asarray(src.masks)[idx])
+    dev = pipe._put((imgs, msks))
+    torch.cuda.synchronize()
+    assert torch.equal(dev[0].cpu(), imgs) and torch.equal(dev[1].cpu(), msks)

@@ -41,15 +41,45 @@ def test_synthetic_source_is_bit_equal(kw):
             np.testing.assert_array_equal(a, b)
 
 
-def test_build_source():
+def _tiny_trees(root):
+    """One-sample BDD100K, CARLA, SEAME and packed datasets under ``root``."""
+    import json
+
+    import cv2
+
+    rng = np.random.RandomState(0)
+    for kind, ext in (("bdd100k", ".jpg"), ("carla", ".png")):
+        (root / kind / "images").mkdir(parents=True)
+        (root / kind / "masks").mkdir()
+        cv2.imwrite(str(root / kind / "images" / f"a{ext}"),
+                    rng.randint(0, 255, (21, 35, 3), np.uint8))
+        cv2.imwrite(str(root / kind / "masks" / "a.png"), rng.randint(0, 25, (21, 35), np.uint8))
+    cv2.imwrite(str(root / "s.jpg"), rng.randint(0, 255, (20, 30, 3), np.uint8))
+    (root / "s.jsonl").write_text(json.dumps({
+        "raw_file": "s.jpg", "image_height": 20, "image_width": 30,
+        "polygons": [[[0, 19], [29, 19], [15, 8]]]}))
+    np.save(root / "images.npy", rng.randint(0, 255, (3, H, W, 3), np.uint8))
+    np.save(root / "masks.npy", rng.randint(0, 10, (3, H, W), np.uint8))
+    (root / "meta.json").write_text(json.dumps({"width": W, "height": H, "count": 3}))
+    return {k: dict(img_dir=str(root / k / "images"), mask_dir=str(root / k / "masks"))
+            for k in ("bdd100k", "carla")} | {
+        "seame": dict(img_dir=str(root), annotation_file=str(root / "s.jsonl")),
+        "packed": dict(packed_dir=str(root))}
+
+
+def test_build_source(tmp_path):
     cfg = dict(kind="synthetic", num_samples=5, car_prob=0.5)
     src, ref = build_source(DatasetSourceConfig(**cfg), W, H), \
         jax_build_source(JaxSourceConfig(**cfg), W, H)
     assert len(src) == len(ref) == 5
     np.testing.assert_array_equal(src.load(4)[1], ref.load(4)[1])
+    trees = _tiny_trees(tmp_path)
     for kind in ("bdd100k", "carla", "seame", "packed"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            build_source(DatasetSourceConfig(kind=kind), W, H)
+        src, ref = build_source(DatasetSourceConfig(kind=kind, **trees[kind]), W, H), \
+            jax_build_source(JaxSourceConfig(kind=kind, **trees[kind]), W, H)
+        assert type(src).__name__ == type(ref).__name__ and len(src) == len(ref) > 0, kind
+        for a, b in zip(src.load(len(src) - 1), ref.load(len(ref) - 1)):
+            np.testing.assert_array_equal(a, b)
     with pytest.raises(KeyError):
         build_source(DatasetSourceConfig(kind="nope"), W, H)
 
@@ -206,5 +236,7 @@ def test_standard_augment_distribution():
     right_bright = (y[:, 4, 12] == 3).float().mean()
     assert abs(float(right_bright) - 0.5) < 0.08
     assert bool(torch.isfinite(x).all()) and x.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="A8"):
-        augment.make_augment_fn(8, 16, heavy=True)
+    # the heavy pipeline keeps the labels too
+    _, y = augment.make_augment_fn(8, 16, heavy=True)(
+        torch.from_numpy(imgs[:8]), torch.from_numpy(masks[:8]), torch.Generator().manual_seed(1))
+    assert set(torch.unique(y).tolist()) <= {0, 3}

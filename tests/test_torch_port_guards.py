@@ -48,7 +48,8 @@ def test_package_imports_without_jax_tpuseg_or_cv2():
     walked = out.stdout.split("\n")[-2].split()
     assert len(walked) >= 15
     for name in ("ops.morphology", "ops.native_post", "infer.postprocess", "infer.video",
-                 "inference", "tools.serve"):
+                 "inference", "tools.serve", "ops.native_loader", "data.class_stats",
+                 "data.visualize", "tools.pack_dataset", "tools.class_stats", "ops._native"):
         assert "tpuseg_torch." + name in walked
 
 

@@ -391,11 +391,10 @@ def test_without_cv2_cleanup_and_blend_run_on_the_native_library(demo_frames, no
 
 
 def test_without_library_or_cv2_the_postprocess_raises_naming_both(monkeypatch, tmp_path):
-    monkeypatch.setattr(native_post, "COMMITTED", tmp_path / "missing.so")
-    monkeypatch.setattr(native_post, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native_post.LIBRARY, "committed", tmp_path / "missing.so")
+    monkeypatch.setattr(native_post.LIBRARY, "build_dir", tmp_path / "build")
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
-    for name, value in (("_TRIED", False), ("_LIB", None), ("_PATH", None), ("_WHY", "")):
-        monkeypatch.setattr(native_post, name, value)
+    monkeypatch.setattr(native_post.LIBRARY, "_loaded", None)
     monkeypatch.setattr(post, "cv2_or_none", lambda: None)
     assert not native_post.available() and native_post.library_path() is None
     assert "missing.so" in native_post.unavailable_reason()
@@ -410,10 +409,9 @@ def test_without_library_or_cv2_the_postprocess_raises_naming_both(monkeypatch, 
 
 def test_native_library_builds_from_source_when_the_committed_one_fails(monkeypatch,
                                                                          tmp_path):
-    monkeypatch.setattr(native_post, "COMMITTED", tmp_path / "missing.so")
-    monkeypatch.setattr(native_post, "BUILD_DIR", tmp_path / "build")
-    for name, value in (("_TRIED", False), ("_LIB", None), ("_PATH", None), ("_WHY", "")):
-        monkeypatch.setattr(native_post, name, value)
+    monkeypatch.setattr(native_post.LIBRARY, "committed", tmp_path / "missing.so")
+    monkeypatch.setattr(native_post.LIBRARY, "build_dir", tmp_path / "build")
+    monkeypatch.setattr(native_post.LIBRARY, "_loaded", None)
     path = native_post.library_path()
     assert path is not None and path.startswith(str(tmp_path / "build"))
     classes = _scene_classes((40, 60))

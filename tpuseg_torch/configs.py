@@ -61,7 +61,7 @@ class DatasetSourceConfig:
 
 @dataclass
 class DataConfig:
-    """Input pipeline configuration (the data layer is not ported yet)."""
+    """Input pipeline configuration (tpuseg_torch/data)."""
 
     width: int = 256
     height: int = 128

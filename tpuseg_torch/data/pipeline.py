@@ -8,9 +8,11 @@ producer assembles straight into pinned host memory and the upload is
 numerical work (normalize, augment) happens on the device
 (``tpuseg_torch.data.augment``).
 
-``SampleCache`` is the JAX package's bounded LRU of decoded samples. The
-packed-source batch gather is not ported with the packed source
-(ROADMAP.md A8).
+``SampleCache`` is the JAX package's bounded LRU of decoded samples.
+Where there is no cache and every picked source has ``load_batch`` (the
+packed memmap), a batch is one gather per source, written straight into
+the pinned buffer (the native GIL-free memcpy where its library loads):
+the same bytes as the per-sample path.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import threading
 from collections import OrderedDict
 from typing import Iterator, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from tpuseg_torch.data.combined import CombinedDataset, WeightedMixSampler
@@ -114,10 +117,33 @@ class InputPipeline:
             return self.combined.load_train(sid, pos)
         return self._cache.get((sid, pos), lambda: self.combined.load_train(sid, pos))
 
+    def _gather(self, picks, imgs: np.ndarray, msks: np.ndarray) -> None:
+        """The batched fast path: one ``load_batch`` per source; a single
+        source writes straight into the batch buffers."""
+        order = np.arange(len(picks))
+        sids = np.asarray([sid for sid, _ in picks])
+        for sid in np.unique(sids):
+            rows = order[sids == sid]
+            abs_idx = np.asarray([int(self.combined.train_indices[sid][picks[r][1]])
+                                  for r in rows], np.int64)
+            source = self.combined.sources[sid]
+            if len(rows) == len(imgs):
+                source.load_batch(abs_idx, imgs, msks)
+            else:
+                ti = np.empty((len(rows), *imgs.shape[1:]), np.uint8)
+                tm = np.empty((len(rows), *msks.shape[1:]), np.uint8)
+                source.load_batch(abs_idx, ti, tm)
+                imgs[rows] = ti
+                msks[rows] = tm
+
     def _assemble(self, picks) -> Tuple[torch.Tensor, torch.Tensor]:
         imgs_t = self._empty((self.batch_size, self.height, self.width, 3))
         msks_t = self._empty((self.batch_size, self.height, self.width))
         imgs, msks = imgs_t.numpy(), msks_t.numpy()
+        if self._cache is None and all(hasattr(self.combined.sources[sid], "load_batch")
+                                       for sid, _ in picks):
+            self._gather(picks, imgs, msks)
+            return imgs_t, msks_t
         for i, (sid, pos) in enumerate(picks):
             sample = self._load(sid, pos)
             redraws = 0

@@ -7,14 +7,9 @@ frame, as a dependency-free C++ library. On a host without cv2 (the H100
 machine) it is the postprocess's only route for the road cleanup and the
 blend.
 
-Where the library comes from, in order:
-
-1. ``native/libtpuseg_post.so`` as committed;
-2. if that does not load (another glibc, a stale build), ``native/
-   postprocess.cpp`` compiled at first use by the host C++ compiler
-   (``$CXX``, else ``c++``) with ``native/Makefile``'s flags
-   (``-O3 -fPIC -std=c++17 -shared``) into ``build/native/`` at the
-   repository root (git-ignored), named by a hash of the source.
+Where the library comes from is ``ops/_native.py``'s policy: the committed
+``native/libtpuseg_post.so``, else ``native/postprocess.cpp`` compiled at
+first use into ``build/native/``.
 
 ``library_path()`` says which file loaded. ``available()`` is False when
 neither route gives a library; the postprocess then takes cv2 where it
@@ -25,72 +20,14 @@ RuntimeError without a library, with the reason it did not load.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_ROOT = Path(__file__).resolve().parents[2]
-COMMITTED = _ROOT / "native" / "libtpuseg_post.so"
-SOURCE = _ROOT / "native" / "postprocess.cpp"
-BUILD_DIR = _ROOT / "build" / "native"
-CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
-
-_LIB: Optional[ctypes.CDLL] = None
-_PATH: Optional[Path] = None
-_WHY = ""
-_TRIED = False
+from tpuseg_torch.ops._native import NativeLibrary
 
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-
-
-def _built_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libtpuseg_post-{digest}.so"
-
-
-def _build() -> Path:
-    """Compile native/postprocess.cpp with the host C++ compiler (once per
-    source hash); raises OSError naming what failed."""
-    dst = _built_path()
-    if dst.exists():
-        return dst
-    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
-    if not cxx:
-        raise OSError("no C++ compiler ($CXX, c++ or g++) to build native/postprocess.cpp")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = dst.with_name(f"{dst.name}.{os.getpid()}.tmp")
-    out = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True, timeout=300)
-    if out.returncode != 0:
-        raise OSError(f"{cxx} failed on native/postprocess.cpp:\n{out.stderr}")
-    os.replace(tmp, dst)
-    return dst
-
-
-def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _PATH, _WHY, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    why = []
-    try:
-        _LIB, _PATH = _bind(ctypes.CDLL(str(COMMITTED))), COMMITTED
-        return _LIB
-    except (OSError, AttributeError) as e:
-        why.append(str(e))
-    try:
-        path = _build()
-        _LIB, _PATH = _bind(ctypes.CDLL(str(path))), path
-    except (OSError, AttributeError, subprocess.TimeoutExpired) as e:
-        why.append(f"build: {e}")
-        _WHY = "; ".join(why)
-    return _LIB
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -113,8 +50,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+LIBRARY = NativeLibrary("libtpuseg_post.so", "postprocess.cpp", _bind)
+
+
 def available() -> bool:
-    return _load() is not None
+    return LIBRARY.load() is not None
 
 
 def has_colorize_blend() -> bool:
@@ -125,20 +65,18 @@ def has_colorize_blend() -> bool:
 
 def library_path() -> Optional[str]:
     """The library file that loaded, or None."""
-    _load()
-    return None if _PATH is None else str(_PATH)
+    return None if LIBRARY.path is None else str(LIBRARY.path)
 
 
 def unavailable_reason() -> str:
     """Why no library loaded ('' when one did)."""
-    _load()
-    return _WHY
+    return LIBRARY.why
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _load()
+    lib = LIBRARY.load()
     if lib is None:
-        raise RuntimeError(f"the native postprocess library did not load ({_WHY})")
+        raise RuntimeError(f"the native postprocess library did not load ({LIBRARY.why})")
     return lib
 
 

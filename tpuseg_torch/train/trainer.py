@@ -44,6 +44,7 @@ from tpuseg_torch.configs import Config
 from tpuseg_torch.core.checkpoint import CheckpointManager
 from tpuseg_torch.core.dtypes import resolve_device
 from tpuseg_torch.data.augment import make_augment_fn
+from tpuseg_torch.data.class_stats import resolve_auto_class_weights
 from tpuseg_torch.data.combined import CombinedDataset
 from tpuseg_torch.data.pipeline import InputPipeline
 from tpuseg_torch.data.sources import build_source
@@ -70,7 +71,6 @@ def _unported_options(cfg: Config) -> List[tuple]:
         (t.qat, "qat", "A11, QAT"),
         (bool(t.distill_checkpoint), "distillation (distill_checkpoint)",
          "A11, distillation"),
-        (isinstance(t.class_weights, str), "class_weights=auto", "A8, class_stats"),
         (cfg.mesh.data not in (-1, 1) or cfg.mesh.spatial > 1,
          f"mesh data={cfg.mesh.data} spatial={cfg.mesh.spatial}", "A13, multi-GPU"),
     ]
@@ -186,12 +186,23 @@ class Trainer:
         self._tb.flush()
 
     def _build_loss(self):
-        """None => the step's default (plain CE); else make_loss_fn's loss."""
+        """None => the step's default (plain CE); else make_loss_fn's loss.
+        ``class_weights=auto[:median|:inverse]`` is resolved against this
+        run's own train split (``self.class_weights`` keeps the result)."""
         t = self.cfg.train
+        self.class_weights = None
         if (t.loss in ("", "ce") and not t.class_weights and t.label_smoothing == 0.0
                 and t.ignore_index < 0):
             return None
-        weights = tuple(float(w) for w in t.class_weights) or None
+        if isinstance(t.class_weights, str):
+            weights = resolve_auto_class_weights(self.combined, self.cfg.model.num_classes,
+                                                 spec=t.class_weights)
+            log.info("resolved --train.class_weights=%s -> %s "
+                     "(freeze with an explicit list for exact reproducibility)",
+                     t.class_weights, ",".join(f"{w:.4f}" for w in weights))
+        else:
+            weights = tuple(float(w) for w in t.class_weights) or None
+        self.class_weights = weights
         if weights is not None and len(weights) != self.cfg.model.num_classes:
             raise ValueError(
                 f"train.class_weights has {len(weights)} entries; model has "
