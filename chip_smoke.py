@@ -107,7 +107,24 @@ printing one JSON line; any failure raises and exits nonzero:
              and the steady p50 step and images/s beside the train phase's
              synthetic ones; 3 captured steps with the heavy augment
              bit-equal to 3 under ``graphs.eager()`` (deterministic
-             algorithms; the Lovász value within its atomics' tolerance).
+             algorithms; the Lovász value within its atomics' tolerance);
+8. mesh    — data parallelism: two ranks started by
+             ``tpuseg_torch.core.mesh.launch_local`` on the card over gloo
+             (with a card per rank, NCCL): the sharded Lovász on each
+             rank's 4 rows of [8,128,256,10] against the one-process
+             kernel route (coefficients bit-equal, value within 1e-4,
+             gradient within 1e-6) and the plain sharded version, one
+             launch of each kernel per call, its timings (the region with
+             its staged all_reduce, the all_reduce, the local part); the
+             flagship trained 20 steps through ``tpuseg_torch.main
+             --mesh.data=2 --train.loss=ce+lovasz`` (the loss falls, the
+             parameters bit-equal across ranks, 20 launches per rank, the
+             p50 step labelled with its route), then 3 eager steps of a
+             world-2 Trainer against one process on the same batches (the
+             first loss and BatchNorm statistics; the first step's
+             gradients as summed across the ranks, per parameter, and the
+             same check failing on them doubled; the parameters within
+             Adam's bound; the later losses).
 
 The serving phases run as on a host without cv2, the path the port is
 built for: a meta-path finder refuses cv2 for the whole run (the device
@@ -117,8 +134,8 @@ boxes off.
 
 Then the kernels summary line, nvidia-smi's line, and, last, the result
 line {"ok": true, "device": {...}}. A kernel's ``launches`` there are its
-launches on the serving (serve and video phases) or training path (train
-and train_packed phases); fused_inverted_residual runs on
+launches on the serving (serve and video phases) or training path (train,
+train_packed and the mesh phase's 20 steps on each rank); fused_inverted_residual runs on
 no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
 result. fp32 comparisons run with TF32 off for both cuDNN and matmul.
@@ -1575,6 +1592,293 @@ def phase_train_packed(synthetic: dict) -> dict:
     return out
 
 
+# the mesh phase: two ranks sharing the card over gloo (on a machine of one
+# card; NCCL refuses two ranks of one communicator on one device)
+MESH_RANKS, MESH_STEPS, MESH_TIMED, MESH_AB_STEPS, MESH_REPS = 2, 20, 10, 3, 20
+MESH_ROUTE = "2 ranks sharing one card, gloo, eager"
+
+
+MESH_FLAGS = ["--train.loss=ce+lovasz", "--train.epochs=1", "--train.checkpoint_dir=",
+              "--train.log_every=0"]
+# two ranks against one process over MESH_AB_STEPS eager Adam steps from one
+# state on the same batches. The loss and BatchNorm sums are taken over two
+# halves (BatchNorm's variance by flax's E[x^2] - E[x]^2, one process's by
+# torch's), so the first step's loss and statistics agree to fp32 rounding.
+MESH_AB_FIRST_LOSS_RTOL = 1e-5
+# after the first step, each running mean within this share of its channel's
+# standard deviation and each running variance within this share of itself
+# (E[x^2] - E[x]^2 in fp32 loses about eps * mean^2 / var; 4.5e-5 measured at
+# width 0.25 on a CPU)
+MESH_AB_FIRST_STATS_TOL = 1e-3
+# the first step's parameter gradients, summed over the ranks, against one
+# process's on the same batch: per parameter, |g_ranks - g_one| / |g_one|
+# (Frobenius norms) over the parameters that carry at least
+# MESH_GRAD_FLOOR of the largest one's norm (below it a gradient is fp32
+# noise of a sum that cancels, as a conv bias's ahead of a BatchNorm).
+# Readings: 0.0168 on the card, 0.030 at width 0.25 on a CPU (the binned
+# Lovász's gradient jumps where fp32 rounding moves an error across a bin
+# edge, and BatchNorm's backward cancels). A gradient scaled by the world
+# size, or a rank's part lost, gives 0.5 to 1; the same check of the
+# summed gradients doubled must fail it (reading 1.005).
+MESH_AB_GRAD_RTOL = 5e-2
+MESH_GRAD_FLOOR = 1e-3
+# Adam moves a parameter by about lr whatever its gradient's size, so one
+# whose gradient is rounding noise may move by up to 2 lr a step apart:
+# 3 x 2 x 1.5e-4 = 9e-4 after 3 steps; this check sees only a gross fault.
+MESH_AB_PARAM_ATOL = 1e-3
+# the later losses follow from parameters that far apart (readings on the
+# card 3.5e-6 to 9e-5 relative)
+MESH_AB_LOSS_RTOL = 3e-4
+# the sharded op against the one-process kernel route: w is the same lookup
+# of the same coefficients, and the softmax chain is per pixel
+MESH_GRAD_ATOL = 1e-6
+
+
+def mesh_route(ranks: int) -> tuple:
+    """(label, backend) of ``ranks`` ranks on this host: one card each over
+    NCCL where there are as many, else sharing card 0 over gloo."""
+    if torch.cuda.device_count() >= ranks:
+        return f"{ranks} ranks, one card each, NCCL, eager", "nccl"
+    if ranks == MESH_RANKS:
+        return MESH_ROUTE, "gloo"
+    return f"{ranks} ranks sharing one card, gloo, eager", "gloo"
+
+
+def mesh_timed(fn, reps: int = MESH_REPS) -> float:
+    """Host-clock ms of ``fn()`` ending in a synchronize (a gloo collective
+    syncs the host anyway), median over ``reps`` after two warm-ups."""
+    lat = []
+    for i in range(reps + 2):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat[2:]))
+
+
+def mesh_rank(device, logits_np, targets_np, flags, n_ranks) -> dict:
+    """One rank of the mesh phase (a spawned process on ``device``)."""
+    import hashlib
+
+    from tpuseg_torch.core.mesh import all_reduce_, batch_slice, create_mesh
+    from tpuseg_torch.main import main as train_main
+    from tpuseg_torch.ops.lovasz import (lovasz_histograms, lovasz_histograms_plain,
+                                         lovasz_lookup, lovasz_lookup_plain,
+                                         make_sharded_lovasz, sharded_lovasz_parts)
+
+    mesh = create_mesh(n_ranks, 1)
+    rows = batch_slice(mesh, logits_np.shape[0])[0]
+    lg = torch.from_numpy(logits_np[rows]).to(device)
+    tg = torch.from_numpy(targets_np[rows]).to(device)
+    kern, plain = (lovasz_histograms, lovasz_lookup), (lovasz_histograms_plain,
+                                                       lovasz_lookup_plain)
+    out = {"rank": mesh.rank, "backend": mesh.backend, "rows": [rows.start, rows.stop]}
+
+    # (a) the sharded Lovász on this rank's rows: the kernel route, its plain
+    # version, and the autograd op
+    kernels.reset_launches()
+    value, coef, grad = sharded_lovasz_parts(lg, tg, mesh, False, None, *kern)
+    torch.cuda.synchronize()
+    out["launches_per_call"] = {k: v for k, v in kernels.launches.items() if v}
+    value_p, coef_p, grad_p = sharded_lovasz_parts(lg, tg, mesh, False, None, *plain)
+    x = lg.clone().requires_grad_(True)
+    op_value = make_sharded_lovasz(mesh)(x, tg)
+    op_value.backward()
+    out.update(value=float(value), coef=coef.cpu().numpy(), grad=grad.cpu().numpy(),
+               value_plain=float(value_p), coef_plain=coef_p.cpu().numpy(),
+               grad_plain_diff=float((grad_p - grad).abs().max()),
+               op_value=float(op_value.detach()),
+               op_grad_diff=float((x.grad - grad).abs().max()))
+    hist = torch.zeros((3, CLASSES, 256), device=device)
+    ins = copies(lambda i: (lg.clone(), tg.clone()), lg.numel() * 4 + tg.numel() * 8)
+    out["ms"] = {
+        "region": mesh_timed(lambda: sharded_lovasz_parts(lg, tg, mesh, False, None, *kern)),
+        "region_plain": mesh_timed(
+            lambda: sharded_lovasz_parts(lg, tg, mesh, False, None, *plain)),
+        "all_reduce": mesh_timed(lambda: all_reduce_(hist, mesh, mesh.data_group)),
+        "local": device_ms(lambda a, b: sharded_lovasz_parts(a, b, None, False, None, *kern),
+                           ins),
+        "local_plain": device_ms(
+            lambda a, b: sharded_lovasz_parts(a, b, None, False, None, *plain), ins)}
+    del ins
+
+    # (b) the flagship trained through the entry point over the mesh
+    kernels.reset_launches()
+    tr = train_main(flags)
+    torch.cuda.synchronize()
+    out["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    digest = hashlib.sha256()
+    for k, v in tr.model.state_dict().items():
+        digest.update(v.cpu().numpy().tobytes())
+    out.update(losses=tr.step_losses, steps=tr.step, digest=digest.hexdigest(),
+               val_miou=tr.history[-1].get("val_miou"), mesh=str(tr.mesh),
+               captured=hasattr(tr.train_step, "replays"))
+    lat = []
+    for batch in tr.pipeline.train_batches(MESH_TIMED):
+        t0 = time.perf_counter()
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    out["p50_step_ms"] = float(np.median(lat[2:]))
+    del tr
+    out["ab"] = mesh_ab_run([f"--mesh.data={n_ranks}"], keep=mesh.rank == 0)
+    return out
+
+
+def mesh_ab_run(flags, keep: bool) -> dict:
+    """MESH_AB_STEPS eager steps of a fresh Trainer (ce+lovasz) on its own
+    seeded batches: the losses, and (``keep``) the first step's parameter
+    gradients (over a mesh, as summed across the ranks for the update) and
+    the state after the first and the last step, as numpy."""
+    tr = graph_trainer(["--train.loss=ce+lovasz", *flags])
+    out = {"losses": []}
+    with graphs.eager():
+        for i, batch in enumerate(draw_batches(tr, MESH_AB_STEPS)):
+            out["losses"].append(float(tr.train_step(*batch)["loss"]))
+            if keep and i == 0:
+                out["grads1"] = {k: p.grad.cpu().numpy().copy()
+                                 for k, p in tr.model.named_parameters() if p.grad is not None}
+            if keep and i in (0, MESH_AB_STEPS - 1):
+                out[f"state{i + 1}"] = {k: v.cpu().numpy().copy()
+                                        for k, v in tr.model.state_dict().items()
+                                        if not k.endswith("num_batches_tracked")}
+    del tr
+    return out
+
+
+def grad_rdiff(got: dict, want: dict) -> float:
+    """The largest |got - want| / |want| (Frobenius norms) over the
+    parameters whose ``want`` norm is at least MESH_GRAD_FLOOR of the
+    largest; every parameter of ``want`` must be in ``got``."""
+    if set(got) != set(want):
+        raise AssertionError(f"mesh: gradients of {sorted(set(got) ^ set(want))} on one side")
+    norms = {k: float(np.linalg.norm(v.astype(np.float64))) for k, v in want.items()}
+    floor = MESH_GRAD_FLOOR * max(norms.values())
+    return max(float(np.linalg.norm(got[k].astype(np.float64) - want[k])) / n
+               for k, n in norms.items() if n >= floor)
+
+
+def _max_diff(a: dict, b: dict, keys) -> float:
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in keys)
+
+
+def _stats_diff(a: dict, b: dict, keys) -> float:
+    """The largest BatchNorm statistic difference, a mean's in units of its
+    channel's standard deviation and a variance's in units of itself."""
+    def scale(k):
+        var = b[k.replace("running_mean", "running_var")].astype(np.float64)
+        return np.sqrt(var) if k.endswith("running_mean") else var
+
+    return max(float((np.abs(a[k].astype(np.float64) - b[k]) / scale(k)).max()) for k in keys)
+
+
+def phase_mesh(n_ranks: int = MESH_RANKS) -> dict:
+    """Data parallelism on the card (see the module): the sharded Lovász
+    per rank against the one-process kernel route, and the flagship
+    trained over ``n_ranks`` ranks against one process. With one card the
+    ranks share it over gloo; with a card per rank they take one each
+    over NCCL."""
+    from tpuseg_torch.core.mesh import launch_local
+    from tpuseg_torch.ops.lovasz import lovasz_histograms, lovasz_lookup, sharded_lovasz_parts
+
+    rng = np.random.RandomState(SEED)
+    logits = (rng.randn(BATCH, *MODEL_HW, CLASSES) * 2).astype(np.float32)
+    targets = rng.randint(0, CLASSES, (BATCH, *MODEL_HW))
+    # the one-process kernel route on the whole batch (this builds nothing:
+    # the build phase did, so the ranks load the same libraries)
+    value, coef, grad = sharded_lovasz_parts(
+        torch.from_numpy(logits).cuda(), torch.from_numpy(targets).cuda(), None, False, None,
+        lovasz_histograms, lovasz_lookup)
+    coef, grad = coef.cpu().numpy(), grad.cpu().numpy()
+    route, backend = mesh_route(n_ranks)
+    flags = [f"--mesh.data={n_ranks}", *MESH_FLAGS, f"--train.steps_per_epoch={MESH_STEPS}",
+             f"--data.val_split={VAL_SPLIT}"]
+    t0 = time.perf_counter()
+    ranks = launch_local(mesh_rank, n_ranks, device="cuda", timeout_s=600,
+                         args=(logits, targets, flags, n_ranks))
+    wall = time.perf_counter() - t0
+
+    lovasz_rows, train_rows = [], []
+    for r in ranks:
+        lo, hi = r["rows"]
+        row = {"rank": r["rank"], "launches_per_call": r["launches_per_call"],
+               "coef_bit_equal": bool(np.array_equal(r["coef"], coef)),
+               "coef_plain_bit_equal": bool(np.array_equal(r["coef_plain"], r["coef"])),
+               "value_diff": abs(r["value"] - float(value)),
+               "value_plain_diff": abs(r["value_plain"] - r["value"]),
+               "op_value_diff": abs(r["op_value"] - r["value"]),
+               "grad_diff": float(np.abs(r["grad"] - grad[lo:hi]).max()),
+               "grad_plain_diff": r["grad_plain_diff"], "op_grad_diff": r["op_grad_diff"],
+               "ms": r["ms"]}
+        lovasz_rows.append(row)
+        if (row["launches_per_call"] != {"lovasz_histograms": 1, "lovasz_lookup": 1}
+                or not row["coef_bit_equal"] or not row["coef_plain_bit_equal"]
+                or max(row["value_diff"], row["value_plain_diff"],
+                       row["op_value_diff"]) > LOVASZ_VALUE_ATOL
+                or max(row["grad_diff"], row["grad_plain_diff"]) > MESH_GRAD_ATOL
+                or row["op_grad_diff"] != 0.0):
+            raise AssertionError(f"mesh: the sharded Lovász on rank {r['rank']}: {row}")
+        losses = r["losses"]
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        want = {"lovasz_histograms": MESH_STEPS, "lovasz_lookup": MESH_STEPS}
+        if (r["launches"] != want or r["steps"] != MESH_STEPS or r["captured"]
+                or r["backend"] != backend or not all(math.isfinite(x) for x in losses)
+                or not last < first or not math.isfinite(r["val_miou"] or float("nan"))):
+            raise AssertionError(f"mesh: rank {r['rank']} trained {r['steps']} steps, "
+                                 f"launches {r['launches']}, losses {losses}")
+        train_rows.append({"rank": r["rank"], "launches": r["launches"], "loss_first5": first,
+                           "loss_last5": last, "val_miou": r["val_miou"],
+                           "p50_step_ms": r["p50_step_ms"], "mesh": r["mesh"]})
+    r0 = ranks[0]
+    if any(r["digest"] != r0["digest"] or r["losses"] != r0["losses"]
+           or r["ab"]["losses"] != r0["ab"]["losses"] for r in ranks):
+        raise AssertionError("mesh: the ranks' parameters or losses differ")
+
+    # the same steps in one process, from the same state on the same batches
+    one, two = mesh_ab_run([], keep=True), r0["ab"]
+    stats = [k for k in one["state1"] if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in one["state1"] if k not in stats]
+    loss_rdiff = [abs(a - b) / abs(b) for a, b in zip(two["losses"], one["losses"])]
+    ab = {"steps": MESH_AB_STEPS, "mesh_losses": two["losses"],
+          "one_process_losses": one["losses"], "loss_rdiff": loss_rdiff,
+          "first_step_stats_scaled_diff": _stats_diff(two["state1"], one["state1"], stats),
+          "first_step_grad_rdiff": grad_rdiff(two["grads1"], one["grads1"]),
+          "planted_x2_grad_rdiff": grad_rdiff({k: 2 * v for k, v in two["grads1"].items()},
+                                              one["grads1"]),
+          "max_param_diff": _max_diff(two[f"state{MESH_AB_STEPS}"],
+                                      one[f"state{MESH_AB_STEPS}"], params),
+          "last_step_stats_max_diff": _max_diff(two[f"state{MESH_AB_STEPS}"],
+                                                one[f"state{MESH_AB_STEPS}"], stats),
+          "tolerances": {"first_loss_rtol": MESH_AB_FIRST_LOSS_RTOL,
+                         "first_stats_scaled": MESH_AB_FIRST_STATS_TOL,
+                         "grad_rtol": MESH_AB_GRAD_RTOL, "grad_floor": MESH_GRAD_FLOOR,
+                         "loss_rtol": MESH_AB_LOSS_RTOL, "param_atol": MESH_AB_PARAM_ATOL}}
+    if (loss_rdiff[0] > MESH_AB_FIRST_LOSS_RTOL or max(loss_rdiff) > MESH_AB_LOSS_RTOL
+            or ab["first_step_stats_scaled_diff"] > MESH_AB_FIRST_STATS_TOL
+            or ab["first_step_grad_rdiff"] > MESH_AB_GRAD_RTOL
+            or ab["planted_x2_grad_rdiff"] <= MESH_AB_GRAD_RTOL
+            or ab["max_param_diff"] > MESH_AB_PARAM_ATOL):
+        raise AssertionError(f"mesh: {n_ranks} ranks against one process: {ab}")
+
+    # the region's bound: this rank's logits (f32) and targets (int64) read
+    # once, the logits gradient (f32) written once
+    pixels = (BATCH // n_ranks) * MODEL_HW[0] * MODEL_HW[1]
+    bound, bound_by = bound_ms(pixels * CLASSES * 4 + pixels * targets.itemsize
+                               + pixels * CLASSES * 4, 0)
+    out = {"phase": "mesh", "route": route, "ranks": n_ranks,
+           "collectives": ("gloo, CUDA tensors staged through host memory"
+                           if backend == "gloo" else "NCCL on the cards"),
+           "wall_s": wall, "sharded_lovasz": lovasz_rows,
+           "region_shape_per_rank": [CLASSES, pixels],
+           "region_bound_ms": bound, "region_bound_by": bound_by,
+           "train": train_rows, "params_bit_equal_across_ranks": True,
+           "p50_step_ms": {"label": route,
+                           "per_rank": [r["p50_step_ms"] for r in ranks]},
+           "vs_one_process": ab}
+    emit(out)
+    return out
+
+
 # the graphs phase: the options configuration of its second train A/B, the
 # steps of each A/B and timing, and K of the multi-step dispatch
 GRAPH_OPTIONS = ["--train.optimizer=adamw", "--train.lr_schedule=cosine",
@@ -1988,7 +2292,10 @@ def main() -> int:
         phase_graphs(pth, frames)
     train = phase_train(perf)
     packed = phase_train_packed(train)
-    train_counts = {k: train["launches"][k] + packed["launches"][k] for k in train["launches"]}
+    mesh = phase_mesh()
+    train_counts = {k: train["launches"][k] + packed["launches"][k]
+                    + sum(r["launches"].get(k, 0) for r in mesh["train"])
+                    for k in train["launches"]}
     # the serving paths: the serve phase's batches and the video phase's
     launches = {"argmax_colorize": serve_counts["argmax_colorize"]
                 + video_counts["argmax_colorize"],
@@ -2008,6 +2315,18 @@ def main() -> int:
         "bound_fp32_ms": blk["bound_fp32_ms"],
         "per_call_ms": [r["ms"] for r in blk["per_call"] if "block" in r]},
         "upsample2x_argmax": {"launch_floor_ms": perf["upsample2x_argmax"]["launch_floor_ms"]},
+        "lovasz_histograms": {"mesh_launches_per_rank": [r["launches"]["lovasz_histograms"]
+                                                         for r in mesh["train"]]},
+        "lovasz_lookup": {"mesh_launches_per_rank": [r["launches"]["lovasz_lookup"]
+                                                     for r in mesh["train"]],
+                          "make_sharded_lovasz": {
+                              "route": mesh["route"],
+                              "region_ms_per_rank": [r["ms"]["region"]
+                                                     for r in mesh["sharded_lovasz"]],
+                              "all_reduce_ms": [r["ms"]["all_reduce"]
+                                                for r in mesh["sharded_lovasz"]],
+                              "local_ms": [r["ms"]["local"] for r in mesh["sharded_lovasz"]],
+                              "bound_ms": mesh["region_bound_ms"]}},
         "fused_upsample_concat_conv": {
             "bound_tc_ms": dec["bound_tc_ms"], "bound_tc_route": dec["bound_tc_route"],
             "bound_fp32_ms": dec["bound_fp32_ms"],

@@ -457,3 +457,30 @@ def test_the_packed_gather_into_pinned_memory_equals_numpy(card, tmp_path):
     dev = pipe._put((imgs, msks))
     torch.cuda.synchronize()
     assert torch.equal(dev[0].cpu(), imgs) and torch.equal(dev[1].cpu(), msks)
+
+
+def test_sharded_lovasz_on_two_ranks_sharing_the_card(card):
+    """The sharded Lovász at the train shape, two ranks on this card over
+    gloo: each rank launches both kernels once on its 4 rows; the global
+    coefficients are bit-equal to the one-process kernel route's (counts
+    and fg sums are exact), the value within its error sums' 1e-4 (float
+    atomics, ROADMAP.md C5), each rank's gradient within 1e-6 of its rows
+    of the one-process gradient."""
+    from tests import torch_port_mesh_ranks as ranks
+    from tpuseg_torch.core.mesh import launch_local
+    from tpuseg_torch.ops import lovasz
+
+    rng = np.random.RandomState(0)
+    logits = (rng.randn(8, 128, 256, 10) * 2).astype(np.float32)
+    targets = rng.randint(0, 10, (8, 128, 256))
+    # the one-process route builds the kernels before the ranks start
+    value, coef, grad = lovasz.sharded_lovasz_parts(
+        torch.from_numpy(logits).cuda(), torch.from_numpy(targets).cuda(), None, False, None,
+        lovasz.lovasz_histograms, lovasz.lovasz_lookup)
+    out = launch_local(ranks.sharded_lovasz_card, 2, device="cuda", timeout_s=300,
+                       args=(logits, targets))
+    for v, c, g, rows, launched in out:
+        assert launched == {"lovasz_histograms": 1, "lovasz_lookup": 1}
+        assert np.array_equal(c, coef.cpu().numpy())
+        assert abs(v - float(value)) <= 1e-4
+        assert np.abs(g - grad[rows].cpu().numpy()).max() <= 1e-6

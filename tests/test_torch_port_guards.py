@@ -100,13 +100,34 @@ def test_config_file_drives_both_packages(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(artifact="model.stablehlo"), dict(mesh=object()),
-], ids=["artifact", "mesh"])
+    dict(artifact="model.stablehlo"),
+], ids=["artifact"])
 def test_unported_predictor_options_raise(kwargs):
     from tpuseg_torch.infer.predictor import Predictor
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(ModelConfig(), device="cpu", **kwargs)
+
+
+def test_mesh_predictor_guards_match_jax():
+    """Mesh serving runs (tests/test_torch_port_mesh.py); its guards raise
+    as the JAX Predictor's do: use_pallas, an indivisible batch, an
+    artifact. A mesh of one rank serves as no mesh."""
+    from tpuseg.core.mesh import create_mesh as jax_create_mesh
+    from tpuseg.infer.predictor import Predictor as JaxPredictor
+    from tpuseg_torch.core.mesh import Mesh, create_mesh
+    from tpuseg_torch.infer.predictor import Predictor
+
+    two = Mesh(2, 1, 0, "gloo")
+    for kw in (dict(model_cfg=ModelConfig(use_pallas=True)),
+               dict(model_cfg=ModelConfig(), batch_size=3),
+               dict(model_cfg=ModelConfig(), artifact="model.stablehlo")):
+        with pytest.raises(ValueError) as want:
+            JaxPredictor(mesh=jax_create_mesh(data=2), **kw)
+        with pytest.raises(ValueError) as got:
+            Predictor(mesh=two, device="cpu", **kw)
+        assert str(got.value) == str(want.value)
+    assert Predictor(ModelConfig(width_mult=0.25), mesh=create_mesh(), device="cpu").mesh is None
 
 
 def test_unported_checkpoints_models_and_paths_raise(tmp_path):
@@ -124,8 +145,6 @@ def test_unported_checkpoints_models_and_paths_raise(tmp_path):
                  "mobilenetv2_deeplab"):
         with pytest.raises(NotImplementedError, match="bfloat16"):
             build_model(ModelConfig(name=name, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Predictor(ModelConfig(name="mobilenetv2_fpn"), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="artifact"):
         Predictor(ModelConfig(name="unet"), artifact="model.stablehlo", device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):

@@ -80,14 +80,19 @@ def test_refusals_match_jax(kw):
     assert str(got.value) == str(want.value)
 
 
-def test_a_mesh_loss_raises():
-    class Mesh:
-        size = 2
+@pytest.mark.parametrize("name", ["ce", "dice", "lovasz", "ce+lovasz"])
+def test_a_mesh_of_one_rank_is_the_single_process_loss(name):
+    """A mesh of one rank (no process group) and ``spatial`` without a
+    mesh give the single-process loss, as the JAX factory ignores a mesh of
+    one device; the multi-rank losses are in tests/test_torch_port_mesh.py."""
+    from tpuseg_torch.core.mesh import create_mesh
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_loss_fn("lovasz", mesh=Mesh())
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_loss_fn("lovasz", spatial=True)
+    logits, targets = _inputs(0, 255)
+    lg, tg = torch.from_numpy(logits), torch.from_numpy(targets)
+    want = make_loss_fn(name, ignore_index=255)(lg, tg)
+    assert create_mesh().size == 1
+    for kw in (dict(mesh=create_mesh()), dict(spatial=True)):
+        assert torch.equal(make_loss_fn(name, ignore_index=255, **kw)(lg, tg), want)
 
 
 def test_losses_keep_float64():

@@ -148,7 +148,7 @@ def test_counts_stay_exact_past_2_24_pixels():
     assert float(n[0, 0]) == want and float(f[0, 0]) == want and float(n.sum()) == want
 
 
-def test_wrappers_validate_shapes_and_the_sharded_op_raises():
+def test_wrappers_validate_shapes_and_the_sharded_op_runs_on_one_rank():
     e = torch.zeros(3, 5)
     with pytest.raises(ValueError, match=r"\[C, P\]"):
         lovasz.lovasz_histograms(e.reshape(-1), e.reshape(-1))
@@ -156,8 +156,21 @@ def test_wrappers_validate_shapes_and_the_sharded_op_raises():
         lovasz.lovasz_histograms(e, torch.zeros(3, 4))
     with pytest.raises(ValueError, match="coef"):
         lovasz.lovasz_lookup(e, torch.zeros(3, 128))
-    with pytest.raises(NotImplementedError, match="A13"):
-        lovasz.make_sharded_lovasz(None)
+    # one rank: the sharded op is the binned op on the logits (the
+    # multi-rank cases are in tests/test_torch_port_mesh.py)
+    from tpuseg_torch.core.mesh import create_mesh
+    from tpuseg_torch.train.loss import lovasz_softmax_loss
+
+    rng = np.random.RandomState(2)
+    logits = torch.from_numpy(rng.randn(2, 4, 6, 5).astype(np.float32))
+    targets = torch.from_numpy(rng.randint(0, 5, (2, 4, 6)))
+    a, b = logits.clone().requires_grad_(True), logits.clone().requires_grad_(True)
+    v = lovasz.make_sharded_lovasz(create_mesh())(a, targets)
+    w = lovasz_softmax_loss(b, targets, bins=256)
+    v.backward()
+    w.backward()
+    assert float(v.detach()) == pytest.approx(float(w.detach()), abs=1e-6)
+    torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-8)
     # e < 0 enters no bin and gets w = 0, as the TPU kernel's padding does
     e = torch.tensor([[-1.0, 0.5, 1.0, 2.0]])
     n, f, s = lovasz.lovasz_histograms(e, torch.ones_like(e))

@@ -102,12 +102,28 @@ def test_without_a_card_it_raises_unless_asked_for_the_cpu(monkeypatch, tmp_path
     ("--train.mu_dtype=bfloat16", "A15"), ("--train.grads_bf16=true", "A15"),
     ("--train.qat=true", "A11"),
     ("--train.distill_checkpoint=x", "A11"),
-    ("--mesh.data=2", "A13"), ("--mesh.spatial=2", "A13"),
+    ("--mesh.spatial=2", "A16"),
 ])
 def test_unported_options_raise(flag, item):
     cfg = load_config([*TINY, flag, "--train.checkpoint_dir="])
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, device="cpu")
+
+
+def test_a_mesh_needs_its_ranks():
+    """One process trains on no mesh at --mesh.data -1 or 1; a larger data
+    axis needs as many ranks (torchrun) and raises as the JAX mesh does
+    without the devices. World-2 training is in tests/test_torch_port_mesh.py."""
+    from tpuseg.core.mesh import create_mesh as jax_create_mesh
+
+    for data in (-1, 1):
+        cfg = load_config([*TINY, f"--mesh.data={data}", "--train.checkpoint_dir="])
+        assert Trainer(cfg, device="cpu").mesh is None
+    cfg = load_config([*TINY, "--mesh.data=2", "--train.checkpoint_dir="])
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        Trainer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="needs 16 devices, have 8"):
+        jax_create_mesh(data=16)
 
 
 def test_unported_sources_raise(monkeypatch, tmp_path):

@@ -6,10 +6,10 @@ file drives both packages and ``to_dict`` of both is equal:
 
     cfg = load_config(["--model.use_pallas=true", "--model.up_subpixel=false"])
 
-Knobs that only mean something on a TPU are accepted and have no effect
-here: ``mesh.*`` (the port runs on one card) and
-``train.steps_per_dispatch``. What the port does not run yet raises where
-it is used (``Predictor``, ``build_model``), naming its ROADMAP item.
+``mesh.data`` is the number of ranks of a process group that train one
+model (``torchrun``; ``tpuseg_torch.core.mesh``); ``mesh.spatial`` above
+one is not run yet. What the port does not run yet raises where it is used
+(``Predictor``, ``build_model``, the Trainer), naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -137,8 +137,9 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """TPU device mesh. Accepted for flag compatibility; no effect in the
-    port, which runs on one card."""
+    """The mesh of ranks (``tpuseg_torch.core.mesh``): ``data`` ranks train
+    one model on their rows of each global batch (-1: every rank of the
+    process group); ``spatial`` above one raises (ROADMAP.md A16)."""
 
     data: int = -1
     spatial: int = 1

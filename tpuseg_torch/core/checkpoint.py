@@ -8,6 +8,10 @@ Python values (loadable with ``weights_only=True``). A save writes a
 temporary file and renames it, so a reader never sees half a file; it
 replaces an existing file of the same step, and then deletes the oldest
 steps beyond ``max_to_keep``.
+
+Over a mesh of ranks (``mesh``) rank 0 alone writes, every rank calls
+``save``, and a barrier after the write holds the others until the file
+is there; every rank reads it on ``restore``.
 """
 
 from __future__ import annotations
@@ -18,13 +22,16 @@ from typing import Any, List, Optional, Union
 
 import torch
 
+from tpuseg_torch.core.mesh import barrier
+
 _NAME = re.compile(r"step_(\d+)\.pt")
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max(1, int(max_to_keep))
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
@@ -39,12 +46,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, payload: Any) -> None:
-        dst = self.path(step)
-        tmp = f"{dst}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, dst)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        if self.mesh is None or self.mesh.rank == 0:
+            dst = self.path(step)
+            tmp = f"{dst}.{os.getpid()}.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, dst)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        barrier(self.mesh)
 
     def restore(self, step: Optional[int] = None,
                 map_location: Union[str, torch.device] = "cpu") -> Any:

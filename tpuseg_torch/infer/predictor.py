@@ -49,9 +49,15 @@ state_dict (reference key names; flax's module names for FPN and DeepLab),
 and a training checkpoint of the port (a ``step_<N>.pt`` file, or a
 checkpoint directory, whose latest step is taken) serves its EMA weights
 when it has them, as the JAX package serves ``ema_params``.
+
+``mesh`` (``tpuseg_torch.core.mesh``, more than one rank): every rank calls
+the Predictor on the same frames, runs its rows of the batch (the
+captured pass above) and all-gathers the class maps (and colours) over
+the data axis, so every rank returns the whole batch's, as the JAX
+Predictor's batch-sharded jit does. The weights are rank 0's.
+
 Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
-Orbax directories (A4), ``artifact`` (A12), ``mesh`` (A13) and int8
-``quant`` (A11/A12).
+Orbax directories (A4), ``artifact`` (A12) and int8 ``quant`` (A11/A12).
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ import torch
 from tpuseg_torch.configs import ModelConfig
 from tpuseg_torch.core import graphs
 from tpuseg_torch.core.dtypes import resolve_device
+from tpuseg_torch.core.mesh import all_gather, batch_slice, replicate
 from tpuseg_torch.data.augment import normalize_images
 from tpuseg_torch.data.class_maps import COLOR_MAP_BGR, IMAGENET_MEAN, IMAGENET_STD
 from tpuseg_torch.infer.postprocess import ROAD_CLASS, cv2_or_none
@@ -162,7 +169,7 @@ class Predictor:
             raise ValueError("use_pallas is single-chip only; Pallas kernels are not "
                              "partitionable across a mesh")
         if mesh is not None:
-            n_data = dict(getattr(mesh, "shape", None) or {}).get("data", 1)
+            n_data = mesh.shape.get("data", 1)
             if batch_size % n_data:
                 raise ValueError(f"batch_size {batch_size} not divisible by the mesh's "
                                  f"data axis ({n_data} devices)")
@@ -196,9 +203,8 @@ class Predictor:
                 "(reference parity)")
         if artifact:
             raise _not_ported("artifact serving", "A12, export")
-        if mesh is not None:
-            raise _not_ported("mesh (multi-device) serving", "A13, multi-GPU")
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.model = build_model(model_cfg)
         validate_input_size(self.model, *input_hw)
         self.input_hw = tuple(input_hw)
@@ -218,6 +224,7 @@ class Predictor:
         self.model.load_state_dict(
             load_variables(checkpoint, self.model.state_dict))
         self.model.to(self.device, memory_format=torch.channels_last).eval()
+        replicate(self.model, self.mesh)
         # the device pass, one CUDA graph per input shape and out_hw
         self._device_forward = graphs.Captured(self._device_forward_eager, "serve_forward",
                                                max_keys=self.MAX_GRAPHS)
@@ -276,7 +283,12 @@ class Predictor:
         fh, fw = out_hw if out_hw is not None else frames.shape[1:3]
         dev_hw = self.input_hw if self.upscale_on_host else (fh, fw)
         x = torch.from_numpy(np.ascontiguousarray(self._maybe_host_resize(frames)))
+        if self.mesh is not None:
+            x = x[batch_slice(self.mesh, x.shape[0])]
         classes, packed = self._device_forward(x.to(self.device), dev_hw)
+        if self.mesh is not None:
+            classes, packed = (None if t is None else torch.cat(
+                all_gather(t, self.mesh, self.mesh.data_group)) for t in (classes, packed))
         return (classes, packed) if self.colorize_on_device else classes
 
     def finish_host(self, classes: np.ndarray, packed: Optional[np.ndarray],

@@ -10,6 +10,16 @@ without ``--platform=cpu`` it raises. When no ``--data.sources`` is given
 and none of the reference's dataset directories exists under ``data/``,
 it trains on 256 synthetic road scenes. fp32 compute is fp32: TF32 is
 turned off for cuDNN convolutions and matmuls.
+
+Data-parallel training runs one process per rank under ``torchrun``:
+
+    torchrun --standalone --nproc_per_node=2 -m tpuseg_torch.main --mesh.data=2 ...
+
+Each rank joins torchrun's process group (NCCL when every rank has a card
+of its own, gloo when they share one or run on the CPU;
+``core.mesh.maybe_initialize_distributed``), and ``--mesh.data=-1`` takes
+every rank. One process (no torchrun, ``--mesh.data`` -1 or 1) trains as
+before.
 """
 
 from __future__ import annotations
@@ -65,15 +75,28 @@ def default_sources(cfg):
 def main(argv: Optional[Sequence[str]] = None):
     """Train as configured; returns the Trainer."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    import torch
+    import torch.distributed as dist
 
     from tpuseg_torch.configs import load_config
     from tpuseg_torch.core.dtypes import resolve_device
-    from tpuseg_torch.train.trainer import Trainer
+    from tpuseg_torch.core.mesh import maybe_initialize_distributed
 
     platform, argv = split_platform_flag(sys.argv[1:] if argv is None else argv)
     device = resolve_device(device_for_platform(platform))
     cfg = load_config(argv)
+    rank_device = maybe_initialize_distributed(device)
+    try:
+        return _train(cfg, rank_device or device)
+    finally:
+        if rank_device is not None:
+            dist.destroy_process_group()
+
+
+def _train(cfg, device):
+    import torch
+
+    from tpuseg_torch.train.trainer import Trainer
+
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False

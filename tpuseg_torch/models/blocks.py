@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpuseg_torch.core.mesh import all_reduce_
 from tpuseg_torch.ops.resize import upsample2x_bilinear
 
 BN_EPS = 1e-5
@@ -72,11 +73,20 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     The batch statistics are computed once, by ``F.batch_norm``, which
     also moves the running buffers; the running variance's move is then
-    scaled by (n-1)/n, from the unbiased variance to the biased one."""
+    scaled by (n-1)/n, from the unbiased variance to the biased one.
+
+    Over a mesh (``mesh`` set by ``set_mesh``; the data axis) train mode
+    normalizes with the global batch's statistics, as flax's BatchNorm
+    under a data-sharded jit: see ``_GlobalBatchNorm``. The running
+    statistics then move alike on every rank."""
+
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None and self.mesh.data_group is not None:
+            return self._global_forward(x)
         if _frozen_stats[0]:
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
                                 self.weight, self.bias, True, self.momentum, self.eps)
@@ -90,6 +100,74 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.copy_((moved - kept) * ((n - 1) / n) + kept)
         return y
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var, y = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.mesh)
+        if not _frozen_stats[0]:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+                self.num_batches_tracked.add_(1)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm on the statistics of the global batch.
+
+    Forward: per-channel sums of x and x^2 and the element count, ONE
+    all_reduce of them over the data axis, then flax's formulas: mean =
+    E[x], var = max(E[x^2] - mean^2, 0), y = (x - mean) rsqrt(var + eps)
+    gamma + beta. Backward: with x_hat the normalized input,
+
+        dx = gamma rsqrt(var + eps) (dy - S1 / N - x_hat S2 / N),
+        S1 = sum dy,  S2 = sum dy x_hat  over the GLOBAL batch,
+
+    so ONE all_reduce of the local (S1, S2) carries the other ranks' terms
+    (this rank's dy is its whole gradient; the statistics feed every
+    rank's outputs). dgamma and dbeta are this rank's parts, summed with
+    the other parameter gradients in the train step."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        dims = [0, 2, 3]
+        c = x.shape[1]
+        stats = torch.cat([x.sum(dims), (x * x).sum(dims),
+                           x.new_full((1,), x.numel() // c)])
+        all_reduce_(stats, mesh, mesh.data_group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, c, 1, 1)
+        x_hat = (x - mean.view(shape)) * invstd.view(shape)
+        y = x_hat * weight.view(shape) + bias.view(shape)
+        ctx.save_for_backward(x_hat, weight, invstd, n)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return mean, var, y
+
+    @staticmethod
+    def backward(ctx, _dmean, _dvar, dy):
+        x_hat, weight, invstd, n = ctx.saved_tensors
+        dims = [0, 2, 3]
+        c = x_hat.shape[1]
+        shape = (1, c, 1, 1)
+        local = torch.cat([dy.sum(dims), (dy * x_hat).sum(dims)])
+        dbeta, dgamma = local[:c].clone(), local[c:].clone()
+        sums = all_reduce_(local, ctx.mesh, ctx.mesh.data_group)
+        dx = (weight * invstd).view(shape) * (
+            dy - (sums[:c] / n).view(shape) - x_hat * (sums[c:] / n).view(shape))
+        return dx, dgamma, dbeta, None, None
+
+
+def set_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Give every BatchNorm2d of ``model`` the mesh whose data axis its
+    train-mode statistics span (None: this rank's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = mesh
+    return model
 
 
 def nhwc(t: torch.Tensor) -> torch.Tensor:

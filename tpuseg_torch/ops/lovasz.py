@@ -21,6 +21,14 @@ pixel with e < 0 enters no bin. (The JAX package's XLA scan,
 ``tpuseg/train/loss.py::_binned_lovasz``, gives e = 1.0 a level of its
 own; the two agree wherever no error is exactly 1.0.)
 
+``make_sharded_lovasz(mesh)`` is the multi-rank form, the port of
+``lovasz_pallas.make_sharded_lovasz``: each rank bins its block of the
+global batch with the same two kernels, one all_reduce of the [3, C, 256]
+histograms makes them global, and the logits gradient is computed in
+closed form (``sharded_lovasz_parts``, which takes the two functions it
+bins and looks up with: the kernels, or their plain versions for holding
+the kernels' route against them).
+
 Dispatch goes by the tensor's device, as in ``ops/kernels.py``: a CPU
 tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. Each launch adds one to ``kernels.launches[<wrapper name>]``.
@@ -35,9 +43,11 @@ once (``lovasz_hist_plan``, the kernel's own rule, from the SM count).
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Optional
 
 import torch
 
+from tpuseg_torch.core.mesh import all_reduce_
 from tpuseg_torch.ops.kernels import (_c_fn, _launch, _on_cuda, _require_f32_contiguous,
                                       launches)
 
@@ -198,8 +208,81 @@ def lovasz_binned_plain(errors: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
     return _LovaszBinned.apply(errors, fg, lovasz_histograms_plain, lovasz_lookup_plain)
 
 
-def make_sharded_lovasz(*args, **kwargs):
-    """The multi-device Lovász of ``lovasz_pallas.make_sharded_lovasz``."""
-    raise NotImplementedError(
-        "the sharded Lovász loss is not ported yet (ROADMAP.md A13, multi-GPU)"
-    )
+# ---------------------------------------------------------------------------
+# the sharded op: local kernels, one all_reduce, the closed-form gradient
+
+
+def sharded_lovasz_parts(logits: torch.Tensor, targets: torch.Tensor, mesh, spatial: bool,
+                         ignore_index: Optional[int], histograms, lookup):
+    """(value, coef, grad) of the Lovász over the mesh's global batch, from
+    this rank's block of logits [b, h, w, C] and targets [b, h, w]: the
+    region of ``lovasz_pallas.make_sharded_lovasz``, step by step.
+
+    The local [C, P] planes give local histograms; ONE all_reduce of the
+    three, stacked into one [3, C, 256] buffer, over the data axis (the
+    whole mesh with ``spatial``) makes them the global batch's; the
+    coefficients and the value follow on every rank alike; the local
+    lookup gives w, and the logits gradient is the closed-form softmax
+    chain dL/dz_k = wt_k p_k - p_k sum_c wt_c p_c with
+    wt = w sign(p - fg) valid, the product autodiff would build from
+    sum |fg - p| * w with w held constant."""
+    dtype = torch.promote_types(logits.dtype, torch.float32)
+    c = logits.shape[-1]
+    probs = torch.exp(torch.log_softmax(logits.to(dtype), dim=-1))
+    classes = torch.arange(c, device=logits.device)
+    onehot = (targets.to(torch.int64)[..., None] == classes).to(dtype)
+    fg = onehot.reshape(-1, c).t()
+    pr = probs.reshape(-1, c).t()
+    errors = torch.abs(fg - pr)
+    valid = None
+    if ignore_index is not None:
+        valid = (targets != ignore_index).to(dtype).reshape(1, -1)
+        fg = fg * valid
+        errors = errors * valid
+    errors, fg = errors.contiguous(), fg.contiguous()
+    hist = torch.stack(histograms(errors, fg))                # [3, C, 256]
+    all_reduce_(hist, mesh, None if mesh is None else mesh.axis_group(spatial))
+    coef, value = coefficients(hist[0], hist[1], hist[2])
+    w = lookup(errors, coef.contiguous())                     # [C, P]
+    wt = w * torch.sign(pr - fg)
+    if valid is not None:
+        wt = wt * valid
+    wp = wt.t().reshape(probs.shape) * probs
+    grad = wp - probs * wp.sum(dim=-1, keepdim=True)
+    return value, coef, grad
+
+
+class _ShardedLovasz(torch.autograd.Function):
+    """The value of the global batch's Lovász (alike on every rank); in
+    backward, g times this rank's closed-form logits gradient. Nothing is
+    all-reduced in backward: the parameter gradients are summed in the
+    train step."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, mesh, spatial, ignore_index, histograms, lookup):
+        value, _, grad = sharded_lovasz_parts(logits, targets, mesh, spatial, ignore_index,
+                                              histograms, lookup)
+        ctx.save_for_backward(grad)
+        ctx.logits_dtype = logits.dtype
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return (g * grad).to(ctx.logits_dtype), None, None, None, None, None, None
+
+
+def make_sharded_lovasz(mesh, spatial: bool = False,
+                        ignore_index: Optional[int] = None) -> Callable:
+    """The multi-rank Lovász at the logits level, the port of
+    ``lovasz_pallas.make_sharded_lovasz``: ``(logits, targets) -> scalar``
+    on this rank's block of the global batch (rows on "data", and H on
+    "spatial" with ``spatial``), whose value is the global batch's and whose
+    backward gives this rank's logits their gradient of it. On a CUDA
+    tensor the two kernels run on the local planes; on a CPU tensor their
+    plain versions."""
+    def fn(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        return _ShardedLovasz.apply(logits, targets, mesh, bool(spatial), ignore_index,
+                                    lovasz_histograms, lovasz_lookup)
+
+    return fn

@@ -15,8 +15,29 @@ view. Logits are promoted to at least float32 (float64 stays float64).
 - ``ce+dice`` and ``ce+lovasz``.
 
 The JAX package's ``TPUSEG_LOVASZ_PALLAS`` switch is a TPU-only knob and
-is not read here: at 256 bins the card always runs the kernels. A mesh
-(``mesh``/``spatial`` above one device) raises (ROADMAP.md A13).
+is not read here: at 256 bins the card always runs the kernels.
+
+Over a mesh of more than one rank (``mesh``; ``tpuseg_torch.core.mesh``)
+each rank holds its block of the global batch, rows on "data" (and H on
+"spatial" with ``spatial``), and every loss is the global batch's, as the
+JAX package's losses are under a data-sharded jit: CE's and focal's
+weighted sums and weight sums, and dice's intersections and unions, are
+summed across the ranks (one all_reduce per loss term), and the Lovász
+takes ``_maybe_sharded_lovasz``'s routes.
+
+The gradient convention, which every term obeys: each rank computes the
+global loss, alike on every rank, and its backward gives this rank's
+inputs (its logits) their whole gradient of that global loss, neither a
+share nor a multiple of it. The collectives in the loss pass the
+cotangent through unchanged (``core.mesh.sum_across``, ``gather_blocks``):
+what they produce is used alike on every rank, so each rank's cotangent
+there is already the whole gradient; the sharded Lovász op returns its
+closed-form local gradient and all-reduces nothing in backward. A
+parameter's gradient on a rank is then its part from this rank's samples,
+and the train step sums those parts over the ranks (SUM all_reduce). The
+one place where a global statistic feeds per-rank outputs is BatchNorm,
+which sums the cross-rank terms in its own backward
+(``models/blocks.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +47,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from tpuseg_torch.ops.lovasz import NB, lovasz_binned_kernel
+from tpuseg_torch.core.mesh import gather_blocks, sum_across
+from tpuseg_torch.ops.lovasz import NB, lovasz_binned_kernel, make_sharded_lovasz
 
 
 def _prep(logits: torch.Tensor, targets: torch.Tensor):
@@ -37,6 +59,16 @@ def _prep(logits: torch.Tensor, targets: torch.Tensor):
     classes = torch.arange(logits.shape[-1], device=logits.device)
     onehot = (targets.to(torch.int64)[..., None] == classes).to(dtype)
     return logp, onehot, dtype
+
+
+def _global(mesh, spatial: bool, *sums: torch.Tensor):
+    """Local sums -> the global batch's: one all_reduce of them stacked
+    (differentiable, cotangent passed through). Unchanged without a mesh."""
+    group = None if mesh is None else mesh.axis_group(spatial)
+    if group is None:
+        return sums
+    flat = sum_across(torch.cat([t.reshape(-1) for t in sums]), mesh, group)
+    return [part.view_as(t) for t, part in zip(sums, flat.split([t.numel() for t in sums]))]
 
 
 def _pixel_weights(onehot, class_weights, dtype):
@@ -55,11 +87,14 @@ def _weights_tensor(values, dtype: torch.dtype, device: torch.device) -> torch.T
 
 
 def cross_entropy_loss(logits, targets, class_weights=None, label_smoothing: float = 0.0,
-                       ignore_index: Optional[int] = None) -> torch.Tensor:
+                       ignore_index: Optional[int] = None, mesh=None,
+                       spatial: bool = False) -> torch.Tensor:
     """Mean per-pixel softmax cross-entropy, torch ``F.cross_entropy`` parity:
 
         per-pixel = (1-s) * nll * w[t] + s * (-(logp . w).sum / C)
-        reduction = sum(per-pixel over valid) / sum(w[t] over valid)"""
+        reduction = sum(per-pixel over valid) / sum(w[t] over valid)
+
+    Both sums are the global batch's over ``mesh`` (see the module)."""
     logp, onehot, dtype = _prep(logits, targets)
     nll = -torch.sum(logp * onehot, dim=-1)
     w, px_w = _pixel_weights(onehot, class_weights, dtype)
@@ -75,11 +110,13 @@ def cross_entropy_loss(logits, targets, class_weights=None, label_smoothing: flo
         valid = (targets != ignore_index).to(dtype)
         per_px = per_px * valid
         px_w = px_w * valid
-    return torch.sum(per_px) / torch.sum(px_w)
+    num, den = _global(mesh, spatial, torch.sum(per_px), torch.sum(px_w))
+    return num / den
 
 
 def focal_loss(logits, targets, gamma: float = 2.0, class_weights=None,
-               ignore_index: Optional[int] = None) -> torch.Tensor:
+               ignore_index: Optional[int] = None, mesh=None,
+               spatial: bool = False) -> torch.Tensor:
     """Multi-class focal loss ``-(1-p_t)^g * log p_t``; ``class_weights`` is
     the alpha term, applied like CE's weight."""
     logp, onehot, dtype = _prep(logits, targets)
@@ -91,11 +128,12 @@ def focal_loss(logits, targets, gamma: float = 2.0, class_weights=None,
         valid = (targets != ignore_index).to(dtype)
         per_px = per_px * valid
         px_w = px_w * valid
-    return torch.sum(per_px) / torch.sum(px_w)
+    num, den = _global(mesh, spatial, torch.sum(per_px), torch.sum(px_w))
+    return num / den
 
 
-def dice_loss(logits, targets, smooth: float = 1.0,
-              ignore_index: Optional[int] = None) -> torch.Tensor:
+def dice_loss(logits, targets, smooth: float = 1.0, ignore_index: Optional[int] = None,
+              mesh=None, spatial: bool = False) -> torch.Tensor:
     """Soft macro Dice loss ``1 - mean_c (2|p.t| + s) / (|p| + |t| + s)``."""
     logp, onehot, dtype = _prep(logits, targets)
     probs = torch.exp(logp)
@@ -103,13 +141,16 @@ def dice_loss(logits, targets, smooth: float = 1.0,
         valid = (targets != ignore_index).to(dtype)[..., None]
         probs = probs * valid
         onehot = onehot * valid
-    inter = torch.sum(probs * onehot, dim=(0, 1, 2))
-    denom = torch.sum(probs, dim=(0, 1, 2)) + torch.sum(onehot, dim=(0, 1, 2))
+    inter, p_sum, t_sum = _global(mesh, spatial, torch.sum(probs * onehot, dim=(0, 1, 2)),
+                                  torch.sum(probs, dim=(0, 1, 2)),
+                                  torch.sum(onehot, dim=(0, 1, 2)))
+    denom = p_sum + t_sum
     dice = (2.0 * inter + smooth) / (denom + smooth)
     return 1.0 - torch.mean(dice)
 
 
-def _binned_lovasz(errors: torch.Tensor, fg: torch.Tensor, bins: int) -> torch.Tensor:
+def _binned_lovasz(errors: torch.Tensor, fg: torch.Tensor, bins: int, mesh=None,
+                   spatial: bool = False) -> torch.Tensor:
     """The level-set Lovász of the JAX package's ``_binned_lovasz``.
 
     Levels t_j = j / bins for j = 0..bins; N(j), F(j), S(j) are the count,
@@ -118,7 +159,9 @@ def _binned_lovasz(errors: torch.Tensor, fg: torch.Tensor, bins: int) -> torch.T
     top level L (the same float comparisons, e >= t_j iff j <= L) and the
     level sums are suffix sums of per-level histograms. So e = 1.0 sits in
     level ``bins`` of its own, as in the scan. The gradient d/de is the
-    pixel's block coefficient, as autodiff of the scan gives."""
+    pixel's block coefficient, as autodiff of the scan gives. Over a mesh,
+    ONE all_reduce of the [3, C, L] level histograms makes them the global
+    batch's (the JAX route's psum of its level sums)."""
     c, _ = errors.shape
     n_levels = bins + 1
     t = torch.arange(n_levels, dtype=errors.dtype, device=errors.device) / bins
@@ -126,9 +169,10 @@ def _binned_lovasz(errors: torch.Tensor, fg: torch.Tensor, bins: int) -> torch.T
     valid = level >= 0
     idx = (level.clamp(min=0) + n_levels * torch.arange(c, device=errors.device)[:, None])
     idx = idx[valid]
-    hist = [torch.zeros(c * n_levels, dtype=errors.dtype, device=errors.device)
-            .index_add(0, idx, v[valid]).view(c, n_levels)
-            for v in (torch.ones_like(errors), fg, errors)]
+    hist = torch.stack([torch.zeros(c * n_levels, dtype=errors.dtype, device=errors.device)
+                        .index_add(0, idx, v[valid]).view(c, n_levels)
+                        for v in (torch.ones_like(errors), fg, errors)])
+    (hist,) = _global(mesh, spatial, hist)
     n_lv, f_lv, s_lv = (torch.flip(torch.cumsum(torch.flip(h, [1]), 1), [1]) for h in hist)
     gts = f_lv[:, :1]
     jac = 1.0 - (gts - f_lv) / torch.clamp(gts + n_lv - f_lv, min=1.0)
@@ -182,6 +226,31 @@ def lovasz_softmax_loss(logits, targets, ignore_index: Optional[int] = None,
     return _lovasz_exact(errors, fg)
 
 
+def _maybe_sharded_lovasz(ignore_index: Optional[int], bins: int, mesh,
+                          spatial: bool) -> Callable:
+    """(logits, targets) -> the Lovász of the global batch, the routes of
+    the JAX package's ``_maybe_sharded_lovasz``: without a mesh of more
+    than one rank, the local loss; at 256 bins ``make_sharded_lovasz`` on
+    either device (the kernels' binning, ROADMAP.md C2); at other positive
+    bins the level sums all-reduced; at ``bins=0`` the exact sort over the
+    global planes gathered from every rank (the JAX package's GSPMD
+    semantics there)."""
+    if mesh is None or mesh.size <= 1:
+        return lambda lg, tg: lovasz_softmax_loss(lg, tg, ignore_index=ignore_index, bins=bins)
+    if bins == NB:
+        return make_sharded_lovasz(mesh, spatial=spatial, ignore_index=ignore_index)
+    if bins > 0:
+        return lambda lg, tg: _binned_lovasz(*lovasz_errors(lg, tg, ignore_index), bins,
+                                             mesh=mesh, spatial=spatial)
+
+    def exact(lg, tg):
+        return lovasz_softmax_loss(gather_blocks(lg, mesh, spatial),
+                                   gather_blocks(tg, mesh, spatial),
+                                   ignore_index=ignore_index, bins=0)
+
+    return exact
+
+
 def make_loss_fn(name: str = "ce", class_weights: Optional[Sequence[float]] = None,
                  label_smoothing: float = 0.0, focal_gamma: float = 2.0,
                  dice_weight: float = 0.5, ignore_index: Optional[int] = None,
@@ -189,11 +258,13 @@ def make_loss_fn(name: str = "ce", class_weights: Optional[Sequence[float]] = No
     """Config-driven loss factory: (logits [B,H,W,C], targets [B,H,W]) -> scalar.
 
     ``name``: "ce" | "focal" | "dice" | "ce+dice" | "lovasz" | "ce+lovasz";
-    the mixes are ``(1 - dice_weight) * CE + dice_weight * surrogate``."""
-    if (mesh is not None and getattr(mesh, "size", 1) > 1) or spatial:
-        raise NotImplementedError(
-            "a loss over a multi-device mesh is not ported yet (ROADMAP.md A13, multi-GPU)"
-        )
+    the mixes are ``(1 - dice_weight) * CE + dice_weight * surrogate``.
+    ``mesh``: over a mesh of more than one rank the loss takes this rank's
+    block of the global batch (H split too with ``spatial``) and is the
+    global batch's (see the module); a mesh of one rank, or none, is the
+    single-process loss."""
+    if mesh is not None and mesh.size <= 1:
+        mesh = None
     w = None if class_weights is None else tuple(float(x) for x in class_weights)
     name = (name or "ce").lower()
     if name in ("dice", "lovasz"):
@@ -214,24 +285,25 @@ def make_loss_fn(name: str = "ce", class_weights: Optional[Sequence[float]] = No
             "--train.label_smoothing (focal's alpha term is class_weights)"
         )
 
+    over = dict(mesh=mesh, spatial=spatial)
+
     def ce(logits, targets):
         return cross_entropy_loss(logits, targets, class_weights=w,
                                   label_smoothing=label_smoothing,
-                                  ignore_index=ignore_index)
+                                  ignore_index=ignore_index, **over)
 
-    def lovasz(logits, targets):
-        return lovasz_softmax_loss(logits, targets, ignore_index=ignore_index,
-                                   bins=lovasz_bins)
+    lovasz = _maybe_sharded_lovasz(ignore_index, lovasz_bins, mesh, spatial)
 
     def dice(logits, targets):
-        return dice_loss(logits, targets, ignore_index=ignore_index)
+        return dice_loss(logits, targets, ignore_index=ignore_index, **over)
 
     dw = float(dice_weight)
     if name == "ce":
         return ce
     if name == "focal":
         return lambda logits, targets: focal_loss(
-            logits, targets, gamma=focal_gamma, class_weights=w, ignore_index=ignore_index)
+            logits, targets, gamma=focal_gamma, class_weights=w, ignore_index=ignore_index,
+            **over)
     if name == "dice":
         return dice
     if name in ("ce+dice", "dice+ce"):

@@ -38,6 +38,8 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from tpuseg_torch.core.mesh import all_reduce_
+
 OPTIMIZERS = ("adam", "adamw", "sgd")
 
 
@@ -109,6 +111,19 @@ class Optimizer:
 
     def grads(self) -> List[torch.Tensor]:
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def sum_grads(self, mesh) -> None:
+        """Sum every parameter's gradient over the mesh's data axis: ONE
+        all_reduce of them flattened, before the clip and the update, so
+        the clip sees the global norm and every rank applies one update.
+        Each rank's gradient is its part (see ``train/loss.py``)."""
+        grads = self.grads()
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh, mesh.data_group)
+        for p, part in zip(self.params, flat.split([g.numel() for g in grads])):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            p.grad.copy_(part.view(p.shape))
 
     @torch.no_grad()
     def step(self) -> None:

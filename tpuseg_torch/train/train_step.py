@@ -11,11 +11,24 @@ or inside ``graphs.eager()``, the same body runs op by op.
 
 Images enter the steps channels-last ([B, H, W, 3], the JAX layout); the
 model sees an NCHW view of them, and the loss the logits' NHWC view.
+
+Over a mesh (``mesh``, more than one rank; ``tpuseg_torch.core.mesh``) a
+step is one global step, as the JAX package's data-sharded jit is: every
+rank is given the same global batch, augments all of it with the same
+draws, and keeps its rows (``batch_slice``); the loss (``make_loss_fn``
+with the mesh) and the BatchNorm statistics (``blocks.set_mesh``) are the
+global batch's; ONE all_reduce sums the flattened parameter gradients
+(``Optimizer.sum_grads``); then the clip on the global norm, the update
+and the EMA run alike on every rank, so the parameters stay equal there.
+Such a step runs uncaptured: its collectives sync the host with the card
+(gloo stages through host memory), which a CUDA graph cannot hold. The
+eval step evaluates this rank's rows and sums its outputs over the ranks.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -23,12 +36,15 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from tpuseg_torch.core import graphs
+from tpuseg_torch.core.mesh import all_reduce_, batch_slice
 from tpuseg_torch.data.augment import normalize_images
 from tpuseg_torch.models.blocks import frozen_running_stats
 from tpuseg_torch.ops.resize import resize_bilinear
 from tpuseg_torch.train.loss import cross_entropy_loss
 from tpuseg_torch.train.metrics import confusion_matrix
 from tpuseg_torch.train.optim import Optimizer
+
+log = logging.getLogger(__name__)
 
 
 def forward_nhwc(model: nn.Module, images: torch.Tensor) -> torch.Tensor:
@@ -61,13 +77,33 @@ def _check_finite(loss: torch.Tensor, params) -> None:
             raise FloatingPointError(f"debug_nans: the gradient of {name} is not finite")
 
 
+def _active(mesh):
+    """The mesh when it has more than one rank, else None."""
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _uncaptured(mesh, name: str) -> bool:
+    """Whether a step over ``mesh`` must run uncaptured (and say so once)."""
+    if _active(mesh) is None:
+        return False
+    if mesh.rank == 0:
+        log.info("%s over %d ranks (%s) runs uncaptured: its collectives sync the host",
+                 name, mesh.size, mesh.backend)
+    return True
+
+
 def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Callable] = None,
                    augment_fn: Optional[Callable] = None,
                    generator: Optional[torch.Generator] = None, remat: bool = False,
-                   debug_nans: bool = False) -> Callable:
+                   debug_nans: bool = False, mesh=None) -> Callable:
     """One uncaptured step, ``(images, labels) -> loss`` (a detached device
     scalar). With ``augment_fn`` it takes uint8 images and masks and
-    augments them first, drawing from ``generator``."""
+    augments them first, drawing from ``generator``. Over ``mesh`` it
+    takes the global batch and keeps this rank's rows after the augment;
+    ``loss_fn`` must be built for the same mesh."""
+    mesh = _active(mesh)
+    if mesh is not None and loss_fn is None:
+        raise ValueError("a step over a mesh needs a loss_fn built for it (make_loss_fn(mesh=))")
     compute_loss = loss_fn or cross_entropy_loss
     forward = _train_forward(model, remat)
     named = list(model.named_parameters())
@@ -75,10 +111,15 @@ def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Cal
     def body(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         if augment_fn is not None:
             images, labels = augment_fn(images, labels, generator)
+        if mesh is not None:
+            rows = batch_slice(mesh, images.shape[0])[0]
+            images, labels = images[rows], labels[rows]
         model.train()
         loss = compute_loss(forward(images), labels)
         optimizer.zero_grad()
         loss.backward()
+        if mesh is not None:
+            optimizer.sum_grads(mesh)
         if debug_nans:
             _check_finite(loss, named)
         optimizer.step()
@@ -90,7 +131,7 @@ def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Cal
 def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Callable] = None,
                     augment_fn: Optional[Callable] = None,
                     generator: Optional[torch.Generator] = None, remat: bool = False,
-                    debug_nans: bool = False) -> Callable:
+                    debug_nans: bool = False, mesh=None) -> Callable:
     """The step: ``(images f32 [B,H,W,3], labels [B,H,W]) -> {"loss"}``; or,
     with ``augment_fn``, ``(images u8, masks u8) -> {"loss"}`` with the
     augmentation (drawing from ``generator``) fused in front. ``loss_fn``
@@ -99,13 +140,15 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Ca
     graph per input shape. ``debug_nans`` runs op by op (as JAX's debug
     mode does) and raises FloatingPointError on a loss or gradient that is
     not finite. The loss comes back as a device tensor, overwritten by the
-    next call: reading it is the caller's choice of when to sync."""
-    body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans)
+    next call: reading it is the caller's choice of when to sync. Over
+    ``mesh`` the step is the global one (see the module), uncaptured."""
+    body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans,
+                          mesh)
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {"loss": body(images, labels)}
 
-    if debug_nans:
+    if debug_nans or _uncaptured(mesh, "the train step"):
         return step
     return graphs.Captured(step, "train_step", _generators(generator))
 
@@ -114,11 +157,13 @@ def make_train_multi_step(k: int, model: nn.Module, optimizer: Optimizer,
                           loss_fn: Optional[Callable] = None,
                           augment_fn: Optional[Callable] = None,
                           generator: Optional[torch.Generator] = None, remat: bool = False,
-                          debug_nans: bool = False) -> Callable:
+                          debug_nans: bool = False, mesh=None) -> Callable:
     """K steps per dispatch, the port of ``make_train_multi_step``:
     ``(images [K, B, ...], labels [K, B, ...]) -> {"loss": [K]}``, the same
-    arithmetic as K calls of the single step, captured as one graph."""
-    body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans)
+    arithmetic as K calls of the single step, captured as one graph (over
+    ``mesh``, K global steps, uncaptured)."""
+    body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans,
+                          mesh)
 
     def multi_step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         if images.shape[0] != k or labels.shape[0] != k:
@@ -126,7 +171,7 @@ def make_train_multi_step(k: int, model: nn.Module, optimizer: Optimizer,
                              f"{labels.shape[0]}")
         return {"loss": torch.stack([body(images[i], labels[i]) for i in range(k)])}
 
-    if debug_nans:
+    if debug_nans or _uncaptured(mesh, f"the {k}-step dispatch"):
         return multi_step
     return graphs.Captured(multi_step, f"train_multi_step_{k}", _generators(generator))
 
@@ -140,7 +185,7 @@ def _generators(generator: Optional[torch.Generator]):
 
 def make_eval_step(model: nn.Module, num_classes: int, normalize: Optional[Tuple] = None,
                    tta: str = "", ms_scales: Tuple[float, ...] = (0.75, 1.25),
-                   ms_divisor: int = 32) -> Callable:
+                   ms_divisor: int = 32, mesh=None) -> Callable:
     """``(images, labels, n_valid) -> {"loss_sum", "n", "confusion"}``, all
     device tensors. ``n_valid`` (an int or a device scalar) masks the
     zero-padded tail samples as the JAX step does: their pixels go to class
@@ -155,7 +200,12 @@ def make_eval_step(model: nn.Module, num_classes: int, normalize: Optional[Tuple
     in fp32, the logits at each of ``ms_scales`` (snapped to multiples of
     ``ms_divisor``; a scale that snaps to the input size is skipped),
     bilinearly resized back. On the card each batch shape replays one
-    graph."""
+    graph.
+
+    Over ``mesh`` the step takes the global batch, evaluates this rank's
+    rows (captured as above) and sums the three outputs over the data
+    axis, the confusion matrix included, so every rank returns the global
+    batch's, as the JAX step's data-sharded jit does."""
     if tta not in ("", "flip", "ms", "flip+ms"):
         raise ValueError(f"unknown tta mode {tta!r} (expected ''|'flip'|'ms'|'flip+ms')")
 
@@ -202,4 +252,20 @@ def make_eval_step(model: nn.Module, num_classes: int, normalize: Optional[Tuple
         return {"loss_sum": (per_sample * valid.to(per_sample.dtype)).sum(),
                 "n": valid.to(torch.float32).sum(), "confusion": cm}
 
-    return graphs.Captured(eval_step, f"eval_step{'_' + tta if tta else ''}")
+    local = graphs.Captured(eval_step, f"eval_step{'_' + tta if tta else ''}")
+    mesh = _active(mesh)
+    if mesh is None:
+        return local
+
+    def global_eval_step(images: torch.Tensor, labels: torch.Tensor, n_valid):
+        rows = batch_slice(mesh, images.shape[0])[0]
+        n_local = min(max(int(n_valid) - rows.start, 0), rows.stop - rows.start)
+        out = local(images[rows], labels[rows],
+                    torch.tensor(n_local, device=images.device))
+        sums = all_reduce_(torch.stack([out["loss_sum"].to(torch.float64),
+                                        out["n"].to(torch.float64)]), mesh, mesh.data_group)
+        cm = all_reduce_(out["confusion"].clone(), mesh, mesh.data_group)
+        return {"loss_sum": sums[0].to(out["loss_sum"].dtype),
+                "n": sums[1].to(out["n"].dtype), "confusion": cm}
+
+    return global_eval_step

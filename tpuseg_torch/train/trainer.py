@@ -23,6 +23,16 @@ model, optimizer, EMA (its own key), step, epoch and sampler state under
 ``<checkpoint_dir>/step_<N>.pt``, ``keep_checkpoints`` of them, plus the
 best val-mIoU one under ``<checkpoint_dir>/best/`` and ``best.json``.
 
+Data parallelism: in a process group of more than one rank (``python -m
+tpuseg_torch.main`` under ``torchrun``, or ``core.mesh.launch_local``)
+``--mesh.data`` ranks train one model, as the JAX Trainer does over its
+mesh's data axis: every rank draws the same global batch and keeps its
+rows, the loss, BatchNorm statistics and gradients are the global
+batch's, and the parameters, broadcast from rank 0 after init and after
+``init_checkpoint``, stay equal on every rank (``train/train_step.py``).
+Rank 0 alone writes checkpoints, ``best.json`` and the epoch records;
+every rank resumes from them. Such steps run uncaptured.
+
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no such request the constructor raises. What the port
 does not run yet raises NotImplementedError naming its ROADMAP.md item.
@@ -39,15 +49,18 @@ from typing import Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpuseg_torch.configs import Config
 from tpuseg_torch.core.checkpoint import CheckpointManager
 from tpuseg_torch.core.dtypes import resolve_device
+from tpuseg_torch.core.mesh import all_reduce_, create_mesh, replicate
 from tpuseg_torch.data.augment import make_augment_fn
 from tpuseg_torch.data.class_stats import resolve_auto_class_weights
 from tpuseg_torch.data.combined import CombinedDataset
 from tpuseg_torch.data.pipeline import InputPipeline
 from tpuseg_torch.data.sources import build_source
+from tpuseg_torch.models.blocks import set_mesh
 from tpuseg_torch.models.registry import build_model, validate_input_size
 from tpuseg_torch.train.loss import make_loss_fn
 from tpuseg_torch.train.metrics import (iou_from_confusion, mean_iou,
@@ -71,9 +84,20 @@ def _unported_options(cfg: Config) -> List[tuple]:
         (t.qat, "qat", "A11, QAT"),
         (bool(t.distill_checkpoint), "distillation (distill_checkpoint)",
          "A11, distillation"),
-        (cfg.mesh.data not in (-1, 1) or cfg.mesh.spatial > 1,
-         f"mesh data={cfg.mesh.data} spatial={cfg.mesh.spatial}", "A13, multi-GPU"),
+        (cfg.mesh.spatial > 1, f"the spatially-sharded train step (mesh spatial="
+         f"{cfg.mesh.spatial})", "A16, spatial train step"),
     ]
+
+
+def trainer_mesh(cfg: Config):
+    """The Trainer's mesh: None for one process (``--mesh.data`` -1 or 1
+    and no process group, or a group of one rank), else ``create_mesh``
+    over the process group, which raises when the ranks do not make
+    ``data x spatial``."""
+    if not dist.is_initialized() and cfg.mesh.data in (-1, 1):
+        return None
+    mesh = create_mesh(cfg.mesh.data, cfg.mesh.spatial)
+    return mesh if mesh.size > 1 else None
 
 
 class Trainer:
@@ -86,12 +110,20 @@ class Trainer:
                 raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = trainer_mesh(cfg)
+        self._writes = self.mesh is None or self.mesh.rank == 0
+        if self.mesh is not None and self.mesh.rank == 0:
+            log.info("mesh: %s", self.mesh)
         if combined is None:
             sources = [build_source(s, cfg.data.width, cfg.data.height)
                        for s in cfg.data.sources]
             weights = [s.weight for s in cfg.data.sources]
             combined = CombinedDataset(sources, weights=weights if any(weights) else None,
                                        val_split=cfg.data.val_split, seed=cfg.data.seed)
+        if self.mesh is not None and cfg.train.batch_size % self.mesh.shape["data"] != 0:
+            raise ValueError(
+                f"batch_size {cfg.train.batch_size} must be divisible by the "
+                f"mesh data axis ({self.mesh.shape['data']} devices)")
         validate_input_size(cfg.model.name, cfg.data.height, cfg.data.width)
         self.combined = combined
         log.info("%s", combined.summary())
@@ -102,6 +134,7 @@ class Trainer:
 
         self.model = build_model(cfg.model, seed=cfg.train.seed).to(
             self.device, memory_format=torch.channels_last)
+        replicate(set_mesh(self.model, self.mesh), self.mesh)
         t = cfg.train
         # the EMA is seeded from the parameters here, before init_checkpoint
         # loads, as create_train_state seeds it in the JAX package
@@ -118,7 +151,8 @@ class Trainer:
             cfg.data.seed + 1)
         self.steps_per_dispatch = max(1, t.steps_per_dispatch)
         step_kw = dict(loss_fn=self._build_loss(), augment_fn=self.augment,
-                       generator=self.aug_generator, remat=t.remat, debug_nans=t.debug_nans)
+                       generator=self.aug_generator, remat=t.remat, debug_nans=t.debug_nans,
+                       mesh=self.mesh)
         if self.steps_per_dispatch > 1:
             self.train_step = make_train_multi_step(self.steps_per_dispatch, self.model,
                                                     self.optimizer, **step_kw)
@@ -127,10 +161,10 @@ class Trainer:
         self.eval_step = make_eval_step(
             self.model, cfg.model.num_classes,
             normalize=(cfg.data.normalize_mean, cfg.data.normalize_std),
-            tta=t.eval_tta, ms_scales=t.eval_tta_scales)
+            tta=t.eval_tta, ms_scales=t.eval_tta_scales, mesh=self.mesh)
         self.profiler = None        # the torch.profiler of the last profiled train()
         self._tb = None
-        if t.tensorboard_dir:
+        if t.tensorboard_dir and self._writes:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError as e:
@@ -143,10 +177,11 @@ class Trainer:
         self.best_ckpt: Optional[CheckpointManager] = None
         if cfg.train.checkpoint_dir:
             self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
-                                          max_to_keep=cfg.train.keep_checkpoints)
+                                          max_to_keep=cfg.train.keep_checkpoints,
+                                          mesh=self.mesh)
             # the best-val-mIoU checkpoint has its own always-kept slot
             self.best_ckpt = CheckpointManager(
-                os.path.join(cfg.train.checkpoint_dir, "best"), max_to_keep=1)
+                os.path.join(cfg.train.checkpoint_dir, "best"), max_to_keep=1, mesh=self.mesh)
         self.step = 0
         self.epoch = 0              # epochs completed (checkpointed)
         self.history: List[Dict] = []
@@ -186,13 +221,14 @@ class Trainer:
         self._tb.flush()
 
     def _build_loss(self):
-        """None => the step's default (plain CE); else make_loss_fn's loss.
+        """None => the step's default (plain CE); else make_loss_fn's loss
+        (always over a mesh: its CE must sum over the ranks).
         ``class_weights=auto[:median|:inverse]`` is resolved against this
         run's own train split (``self.class_weights`` keeps the result)."""
         t = self.cfg.train
         self.class_weights = None
         if (t.loss in ("", "ce") and not t.class_weights and t.label_smoothing == 0.0
-                and t.ignore_index < 0):
+                and t.ignore_index < 0 and self.mesh is None):
             return None
         if isinstance(t.class_weights, str):
             weights = resolve_auto_class_weights(self.combined, self.cfg.model.num_classes,
@@ -211,7 +247,7 @@ class Trainer:
             t.loss, class_weights=weights, label_smoothing=t.label_smoothing,
             focal_gamma=t.focal_gamma, dice_weight=t.dice_weight,
             ignore_index=t.ignore_index if t.ignore_index >= 0 else None,
-            lovasz_bins=t.lovasz_bins)
+            lovasz_bins=t.lovasz_bins, mesh=self.mesh)
 
     def _load_init_checkpoint(self, path: str) -> None:
         """Weights (and BN statistics) from a reference ``.pth``; optimizer
@@ -219,6 +255,7 @@ class Trainer:
         from tpuseg_torch.infer.predictor import load_variables
 
         self.model.load_state_dict(load_variables(path, self.model.state_dict))
+        replicate(self.model, self.mesh)
         log.info("initialized params from %s", path)
 
     # -- checkpointing -------------------------------------------------------
@@ -365,6 +402,17 @@ class Trainer:
             self.cfg.train.profile_dir, f"train_{os.getpid()}_step{self.step}.trace.json"))
         self.profiler = prof
 
+    def _preempted_everywhere(self) -> bool:
+        """Whether a SIGTERM reached this rank, or any rank of the mesh: the
+        ranks stop after the same step, or one would wait for the others
+        in its next collective."""
+        if self.mesh is None:
+            return self._preempted
+        flag = torch.tensor([float(self._preempted)], device=self.device)
+        all_reduce_(flag, self.mesh, self.mesh.group, dist.ReduceOp.MAX)
+        self._preempted = bool(flag.item())
+        return self._preempted
+
     def _run_epoch_steps(self, steps: int, epoch: int, epochs: int) -> List[float]:
         cfg = self.cfg.train
         k = self.steps_per_dispatch
@@ -397,9 +445,9 @@ class Trainer:
                 # a replay's loss is the graph's output tensor, which the next
                 # replay overwrites: keep a copy (queued before that replay)
                 pending = metrics["loss"].clone()
-                if cfg.log_every and self.step % cfg.log_every < k and losses:
+                if cfg.log_every and self.step % cfg.log_every < k and losses and self._writes:
                     log.info("step %d | loss %.4f", self.step, losses[-1])
-                if self._preempted:
+                if self._preempted_everywhere():
                     break
         finally:
             # stop the producer before anything reads the sampler's state
@@ -434,14 +482,15 @@ class Trainer:
             if miou is not None and miou > self._best_miou:
                 self._best_miou = miou
                 rec["best"] = True
-                if self.best_ckpt is not None:
-                    self.best_ckpt.save(self.step, self._checkpoint_payload())
-                if cfg.checkpoint_dir:
+                if cfg.checkpoint_dir and self._writes:
                     with open(os.path.join(cfg.checkpoint_dir, "best.json"), "w") as f:
                         json.dump({"step": self.step, "val_miou": miou}, f)
+                if self.best_ckpt is not None:
+                    self.best_ckpt.save(self.step, self._checkpoint_payload())
         self.history.append(rec)
-        log.info("%s", json.dumps(rec))
-        if self._history_path:
+        if self._writes:
+            log.info("%s", json.dumps(rec))
+        if self._history_path and self._writes:
             with open(self._history_path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
         self._tb_scalars(rec)
