@@ -126,6 +126,33 @@ printing one JSON line; any failure raises and exits nonzero:
              same check failing on them doubled; the parameters within
              Adam's bound; the later losses).
 
+9. bf16    — ModelConfig.compute_dtype=bfloat16 (the JAX package's bf16
+             policy): (a) the four kernels that take activations or logits
+             on bf16 inputs at the slice's shapes, each against its plain
+             version and the f32 route on the widened inputs (the decoder's
+             f32 output and the block's bf16 one bit-equal to that route,
+             the decoder within the fp32 tolerance of its plain version,
+             the block within 1e-4 before rounding or a bf16 step after,
+             the two argmax kernels bit-equal), timed beside the fp32 rows
+             (the decoder's library call both as cuDNN fp32 over the widened
+             concat, the same function, and as cuDNN bf16, for context);
+             (b) the full-width flagship served in bf16 on the kernel route
+             (4 decoder launches a batch) and the default route, each
+             route's captured class maps bit-equal to its eager ones and
+             agreeing with a bf16 plain-path Predictor's on
+             BF16_SERVED_AGREE of the pixels, its logits within
+             BF16_LOGIT_TOL of that Predictor's and its picks equal where
+             no pick can flip (the agreement above BF16_MARGIN, and that
+             with fp32, reported), frames/s, p50 and the captured device
+             stage against fp32 in turns; (c) ``tpuseg_torch.main
+             --model.compute_dtype=bfloat16 --train.loss=lovasz`` for 40
+             steps (the loss falls, both Lovász kernels once a step), 3
+             captured steps bit-equal to eager, the p50 beside the train
+             phase's and the device step against fp32 in turns; (d) 5 steps
+             each with --train.mu_dtype=bfloat16 and --train.grads_bf16=true
+             (mu bf16, nu and the parameters fp32, finite losses). Its
+             path launches join the summary's counts.
+
 The serving phases run as on a host without cv2, the path the port is
 built for: a meta-path finder refuses cv2 for the whole run (the device
 line says whether the host has it), so preprocessing runs on the numpy
@@ -138,7 +165,9 @@ launches on the serving (serve and video phases) or training path (train,
 train_packed and the mesh phase's 20 steps on each rank); fused_inverted_residual runs on
 no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
-result. fp32 comparisons run with TF32 off for both cuDNN and matmul.
+result. fp32 comparisons run with TF32 off for both cuDNN and matmul. The
+summary gives each of the four bf16 kernels its ``bf16_*`` fields beside
+the fp32 ones.
 
 Every train step, eval step and served batch of the port runs as a replay
 of a captured CUDA graph, so each phase above runs the captured route; a
@@ -744,13 +773,16 @@ def timed(p, frames):
 
 def check_served(outs, frames, ref, what: str):
     """(agreement per batch with ``ref``, classes seen); raises if a shape
-    is off or a colour is not the palette entry of its class."""
+    is off or a colour is not the palette entry of its class. An output is
+    (classes, colours), or the classes alone where colorize is off."""
     palette = kernels._pack_palette(COLOR_MAP_BGR)
     agree, distinct = [], set()
-    for f, (classes, colors) in zip(frames, outs):
-        if classes.shape != (BATCH, *FRAME_HW) or colors.shape != classes.shape:
+    for f, out in zip(frames, outs):
+        classes, colors = out if isinstance(out, tuple) else (out, None)
+        if classes.shape != (BATCH, *FRAME_HW) or (
+                colors is not None and colors.shape != classes.shape):
             raise AssertionError(f"{what}: output shape {classes.shape}")
-        if not np.array_equal(colors, palette[classes]):
+        if colors is not None and not np.array_equal(colors, palette[classes]):
             raise AssertionError(f"{what}: colours are not the palette of the classes")
         agree.append(float((classes == ref(f)).mean()))
         distinct |= set(np.unique(classes).tolist())
@@ -1592,6 +1624,380 @@ def phase_train_packed(synthetic: dict) -> dict:
     return out
 
 
+# the bf16 phase: ModelConfig.compute_dtype=bfloat16 on the slice's paths
+BF16 = torch.bfloat16
+BF16_FLAGS = ["--model.compute_dtype=bfloat16"]
+BF16_TRAIN_STEPS, BF16_OPTION_STEPS = 40, 5
+# Two bf16 routes round at other places, so their logits differ by some
+# bf16 steps, and seeded weights leave many near-ties: at this size, on
+# these weights and frames, the JAX package's own bf16 kernel and plain
+# routes agree on 98.87% of the pixels, and the port's two routes on the
+# CPU on 98.76% (tools/bf16_route_agreement.py). Each route's served class
+# maps are held to BF16_SERVED_AGREE of the bf16 plain-path Predictor's,
+# and its captured maps bit-equal to its eager ones; the logits within
+# BF16_LOGIT_TOL of their largest magnitude (tests/test_torch_port_bf16.py's
+# bound against the JAX package), and equal picks wherever the top-two
+# margin exceeds twice the largest logit gap (where no pick can flip). The
+# agreement above BF16_MARGIN is reported.
+BF16_MARGIN = 1e-2
+BF16_LOGIT_TOL = 2 ** -4
+BF16_SERVED_AGREE = 0.98
+BF16_EPS = 2.0 ** -8      # one bf16 step, relative to the value's power of two
+
+
+def bf16_block_check(x16, folded, got) -> float:
+    """fused_inverted_residual on bf16 ``x16``: ``got`` must be the f32
+    route on the widened x rounded once (bit-equal), and lie from the plain
+    version within 1e-4 before rounding or one bf16 step after. Returns
+    the largest gap to the plain version."""
+    f32 = fused_inverted_residual(x16.float(), **folded)
+    if not torch.equal(got, f32.to(BF16)):
+        raise AssertionError("bf16 block: not the f32 route rounded once")
+    want = mbconv_plain(x16, **folded).float()
+    gap = (got.float() - want).abs()
+    if bool((gap > 2 * BF16_EPS * want.abs() + MBCONV_ATOL).any()):
+        raise AssertionError(f"bf16 block off its plain version by {float(gap.max())}")
+    return float(gap.max())
+
+
+def bf16_kernel_rows(perf) -> dict:
+    """(a) The four kernels that take activations or logits, on bf16 inputs
+    at the slice's shapes: against their plain versions and the f32 route
+    on the widened inputs, timed beside their fp32 rows. Bounds count the
+    bf16 bytes read."""
+    rows = {}
+    # argmax_colorize at [8,128,256,10]
+    shape = (BATCH, *MODEL_HW, CLASSES)
+    logits = randn(shape, 31).to(BF16)
+    cls_k, col_k = kernels.argmax_colorize(logits, COLOR_MAP_BGR)
+    cls_p, col_p = kernels.argmax_colorize_plain(logits, COLOR_MAP_BGR)
+    torch.cuda.synchronize()
+    if not (torch.equal(cls_k, cls_p) and torch.equal(col_k.view(torch.int32),
+                                                      col_p.view(torch.int32))):
+        raise AssertionError("bf16 argmax_colorize disagrees with its plain version")
+    n_pix = BATCH * MODEL_HW[0] * MODEL_HW[1]
+    ins = copies(lambda i: (randn(shape, 130 + i).to(BF16),), n_pix * CLASSES * 2)
+    words = kernels._words_for(COLOR_MAP_BGR, logits.device)
+    rows["argmax_colorize"] = dict(
+        max_abs_err=float(below_max(logits.float(), cls_k).max()), bit_equal=True,
+        ms=device_ms(lambda x: kernels.argmax_colorize(x, COLOR_MAP_BGR), ins),
+        plain_ms=device_ms(lambda x: kernels.argmax_colorize_plain(x, COLOR_MAP_BGR), ins),
+        library_ms=device_ms(lambda x: words[torch.argmax(x, dim=-1)], ins))
+    rows["argmax_colorize"]["bound_ms"], rows["argmax_colorize"]["bound_by"] = bound_ms(
+        n_pix * CLASSES * 2 + n_pix * 5 + CLASSES * 4, n_pix * (CLASSES - 1))
+
+    # upsample2x_argmax at [8,64,128,10]
+    shape = (BATCH, MODEL_HW[0] // 2, MODEL_HW[1] // 2, CLASSES)
+    logits = randn(shape, 32).to(BF16)
+    got = kernels.upsample2x_argmax(logits)
+    if not (torch.equal(got, kernels.upsample2x_argmax_plain(logits))
+            and torch.equal(got, kernels.upsample2x_argmax(logits.float()))):
+        raise AssertionError("bf16 upsample2x_argmax differs from its plain version or "
+                             "from the f32 route on the widened logits")
+    n_in = math.prod(shape)
+    ins = copies(lambda i: (randn(shape, 230 + i).to(BF16),), n_in * 2)
+    lib_ins = [(x.permute(0, 3, 1, 2).contiguous(),) for (x,) in ins]
+    up = upsample2x_bilinear(logits.float(), align_corners=True)
+    rows["upsample2x_argmax"] = dict(
+        max_abs_err=float(below_max(up, got).max()), bit_equal=True,
+        ms=device_ms(kernels.upsample2x_argmax, ins),
+        plain_ms=device_ms(kernels.upsample2x_argmax_plain, ins),
+        library_ms=device_ms(lambda x: F.interpolate(
+            x.float(), scale_factor=2, mode="bilinear", align_corners=True).argmax(1), lib_ins),
+        library="F.interpolate(widened, align_corners=True).argmax(1)")
+    rows["upsample2x_argmax"]["bound_ms"], rows["upsample2x_argmax"]["bound_by"] = bound_ms(
+        n_in * 2 + BATCH * MODEL_HW[0] * MODEL_HW[1], BATCH * MODEL_HW[0] * MODEL_HW[1]
+        * CLASSES * 7)
+
+    # fused_upsample_concat_conv at the four decoder shapes, bf16 skip and x
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_bf16_ms=0.0, bound_ms=0.0)
+    max_err = 0.0
+    for k, (sshape, xshape, cout) in UPCONCAT_SHAPES.items():
+        cin = sshape[-1] + xshape[-1]
+
+        def make(i, sshape=sshape, xshape=xshape, cin=cin, cout=cout):
+            return (randn(sshape, 330 + 4 * i).to(BF16), randn(xshape, 331 + 4 * i).to(BF16),
+                    randn((3, 3, cin, cout), 332 + 4 * i, 0.05),
+                    randn((cout,), 333 + 4 * i, 0.1))
+
+        skip, x, w, b = make(0)
+        got = kernels.fused_upsample_concat_conv(skip, x, w, b)
+        want = kernels.fused_upconcat_plain(skip, x, w, b)
+        err = (got - want).abs()
+        if got.dtype != torch.float32 or bool(
+                (err > UPCONCAT_ATOL + UPCONCAT_RTOL * want.abs()).any()):
+            raise AssertionError(f"bf16 fused_upsample_concat_conv {k}: max err "
+                                 f"{float(err.max())}")
+        if not torch.equal(got, kernels.fused_upsample_concat_conv(skip.float(), x.float(),
+                                                                   w, b)):
+            raise AssertionError(f"bf16 fused_upsample_concat_conv {k}: not the f32 route "
+                                 "on the widened inputs")
+        max_err = max(max_err, float(err.max()))
+        n_bytes = (2 * (math.prod(sshape) + math.prod(xshape))
+                   + 4 * (9 * cin * cout + cout + math.prod(sshape[:3]) * cout))
+        flops = 2 * math.prod(sshape[:3]) * cout * 9 * cin
+        ins = copies(make, n_bytes)
+        lib = [(s.permute(0, 3, 1, 2), xx.permute(0, 3, 1, 2),
+                ww.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), bb)
+               for s, xx, ww, bb in ins]
+
+        def cudnn(s, xx, ww, bb):         # the same function: widened, fp32 conv
+            return F.conv2d(torch.cat([s.float(), F.interpolate(
+                xx.float(), scale_factor=2, mode="bilinear", align_corners=False)], dim=1),
+                ww, bb, padding=1)
+
+        def cudnn_bf16(s, xx, ww, bb):    # context: rounds the upsample and the weights
+            return F.conv2d(torch.cat([s, F.interpolate(
+                xx, scale_factor=2, mode="bilinear", align_corners=False)], dim=1),
+                ww.to(BF16), bb.to(BF16), padding=1)
+
+        row = dict(ms=device_ms(kernels.fused_upsample_concat_conv, ins),
+                   plain_ms=device_ms(kernels.fused_upconcat_plain, ins),
+                   library_ms=device_ms(cudnn, lib), library_bf16_ms=device_ms(cudnn_bf16, lib))
+        # a widened bf16 activation is a TF32 value: each multiply-add is 2
+        # TF32 products (the activation by the weight's two parts), not 3
+        row["bound_ms"], _ = bound_ms(n_bytes, 2 * flops, PEAK_TF32_PER_S)
+        for key in tot:
+            tot[key] += row[key]
+    rows["fused_upsample_concat_conv"] = dict(
+        max_abs_err=max_err, **tot, bound_by="operations",
+        library="cuDNN fp32 conv2d over the widened materialized concat (channels_last, "
+                "TF32 off)",
+        library_bf16="cuDNN bf16 conv2d over the bf16 concat: rounds the upsample and the "
+                     "weights, not the same function")
+
+    # fused_inverted_residual at the encoder's 17 blocks, bf16 x
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    max_err = 0.0
+    for i, shape in enumerate(MBCONV_BLOCKS):
+        cin, hidden, cout, stride, use_res, expand, h, w = shape
+        block, folded = mbconv_block(shape, 700 + i)
+        x16 = randn((BATCH, h, w, cin), 760 + i).to(BF16)
+        got = fused_inverted_residual(x16, **folded)
+        if got.dtype != BF16:
+            raise AssertionError(f"bf16 block {i + 1} wrote {got.dtype}")
+        max_err = max(max_err, bf16_block_check(x16, folded, got))
+        ho, wo = h // stride, w // stride
+        weights = sum(v.numel() for v in folded.values() if isinstance(v, torch.Tensor))
+        n_bytes = 2 * (BATCH * h * w * cin + BATCH * ho * wo * cout) + 4 * weights
+        # the expand's input is the bf16 x (2 TF32 products a multiply-add),
+        # the project's the fp32 hidden tensor (3)
+        flops_expand = 2 * BATCH * h * w * cin * hidden if expand else 0
+        flops_project = 2 * BATCH * ho * wo * hidden * cout
+        flops_dw = 2 * BATCH * ho * wo * hidden * 9
+        ins = copies(lambda j: (randn((BATCH, h, w, cin), 800 + 40 * i + j).to(BF16),),
+                     2 * BATCH * h * w * cin)
+
+        def eager(x, block=block):
+            with torch.inference_mode():
+                return block(nchw(x.float()))
+
+        tot["ms"] += device_ms(lambda x: fused_inverted_residual(x, **folded), ins)
+        tot["plain_ms"] += device_ms(lambda x: mbconv_plain(x, **folded), ins)
+        tot["library_ms"] += device_ms(eager, ins)
+        tot["bound_ms"] += max((2 * flops_expand + 3 * flops_project) / PEAK_TF32_PER_S
+                               + flops_dw / PEAK_FP32_PER_S, n_bytes / PEAK_BYTES_PER_S) * 1e3
+    rows["fused_inverted_residual"] = dict(
+        max_abs_err=max_err, **tot, bound_by="operations",
+        library="the port's eager InvertedResidual in eval on the widened x (TF32 off)")
+    for k, r in rows.items():
+        r["fp32_ms"] = perf[k]["ms"]
+    return rows
+
+
+def bf16_agreement(p: Predictor, ref: Predictor, frames, hold: bool = True) -> dict:
+    """``p``'s logits against ``ref``'s on each batch's model input: the
+    largest gap D and the logits' largest magnitude; the share of all
+    pixels whose argmax agrees, and of those where ``ref``'s top-two margin
+    exceeds BF16_MARGIN or 2 D (where no gap of D can flip the pick), with
+    the shares of pixels above each margin. With ``hold``, D must be within
+    BF16_LOGIT_TOL of the largest magnitude and the picks above 2 D equal;
+    the logits fp32 and finite."""
+    rows = []
+    for f in frames:
+        x = model_input(ref, f)
+        with torch.inference_mode():
+            a = p.model(x).permute(0, 2, 3, 1).float()
+            b = ref.model(x).permute(0, 2, 3, 1).float()
+        if not bool(a.isfinite().all()) or p.model(x[:1]).dtype != torch.float32:
+            raise AssertionError("bf16 logits are not fp32 and finite")
+        gap = float((a - b).abs().max())
+        margin = top2_margin(b)
+        same = a.argmax(-1) == b.argmax(-1)
+        above, safe = margin > BF16_MARGIN, margin > 2 * gap
+        share = lambda m: int(m.sum()) / m.numel()
+        rows.append({"all": share(same), "above_margin": int(same[above].sum()) / max(
+            1, int(above.sum())),
+            "above_2gap": int(same[safe].sum()) / int(safe.sum()) if bool(safe.any()) else 1.0,
+            "share_above_margin": share(above), "share_above_2gap": share(safe),
+            "max_logit_gap": gap, "max_abs_logit": float(b.abs().max())})
+    out = {k: min(r[k] for r in rows) for k in rows[0] if not k.startswith("max_")}
+    out.update({k: max(r[k] for r in rows) for k in ("max_logit_gap", "max_abs_logit")})
+    if hold and (out["max_logit_gap"] > BF16_LOGIT_TOL * out["max_abs_logit"]
+                 or out["above_2gap"] != 1.0):
+        raise AssertionError(f"bf16 routes' logits apart: {out}")
+    return out
+
+
+def bf16_serve(pth: Path, frames) -> tuple:
+    """(b) The full-width flagship served in bf16 on the kernel route and
+    the default route: the launches; each route's captured class maps
+    bit-equal to its eager ones, and agreeing with a bf16 plain-path
+    Predictor's on BF16_SERVED_AGREE of the pixels; the logits against
+    that Predictor's (``bf16_agreement``) and, reported, the fp32 one's;
+    frames/s, p50 and the captured device stage beside fp32's, in turns."""
+    routes = {"kernels": KERNEL_FLAGS, "default": []}
+    preds = {(r, dt): flagship(pth, flags + (BF16_FLAGS if dt == "bf16" else []))
+             for r, flags in routes.items() for dt in ("fp32", "bf16")}
+    ref = flagship(pth, PLAIN_FLAGS + BF16_FLAGS)
+    out = {"served": {}}
+    for r in routes:
+        p = preds[(r, "bf16")]
+        kernels.reset_launches()
+        got = [p(f) for f in frames]
+        launched = dict(kernels.launches)
+        if r == "kernels":
+            counts = launched
+        with graphs.eager():
+            want = [p(f) for f in frames]
+        if not all(same_outputs(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"bf16 serve: route {r} captured differs from eager")
+        replays = p._device_forward.replays()
+        if replays != len(frames) - 1:
+            raise AssertionError(f"bf16 serve: route {r} replayed {replays} times")
+        if p.model.up1.conv.conv[0].compute_dtype != BF16:
+            raise AssertionError(f"bf16 serve: route {r}'s model does not compute in bf16")
+        agree, distinct = check_served(got, frames, ref, f"bf16 serve {r}")
+        if len(distinct) < 2 or min(agree) < BF16_SERVED_AGREE:
+            raise AssertionError(f"bf16 serve {r}: classes {sorted(distinct)}, agreement "
+                                 f"{agree} with the bf16 plain path")
+        out["served"][r] = {"captured_bit_equal_to_eager": True, "replays": replays,
+                            "agreement_min_vs_bf16_plain": min(agree)}
+    want = {k: 0 for k in counts}
+    want.update(fused_upsample_concat_conv=4 * len(frames), argmax_colorize=len(frames))
+    if counts != want:
+        raise AssertionError(f"bf16 serve launches {counts}, expected {want}")
+    out["launches"] = counts
+    for r in routes:
+        out[f"{r}_route_vs_bf16_plain"] = bf16_agreement(preds[(r, "bf16")], ref, frames)
+    out["vs_fp32"] = bf16_agreement(preds[("kernels", "bf16")], preds[("kernels", "fp32")],
+                                    frames, hold=False)
+    timing = {}
+    for r in routes:
+        rows = {"fp32": [], "bf16": []}
+        for dt in ("fp32", "bf16", "bf16", "fp32"):
+            fps, p50 = timed(preds[(r, dt)], frames)
+            rows[dt].append({"frames_per_s": fps, "p50_batch_ms": p50,
+                             "device_stage_ms": stages(preds[(r, dt)], frames)["device"]})
+        timing[r] = rows
+    out["timing"] = timing
+    del preds, ref
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def bf16_train(train: dict) -> tuple:
+    """(c) ``tpuseg_torch.main --model.compute_dtype=bfloat16
+    --train.loss=lovasz``: the loss falls, both Lovász kernels launch once
+    a step, 3 captured steps bit-equal to eager; the steady p50 beside the
+    train phase's, and the device step against fp32 in turns."""
+    from tpuseg_torch.main import main as train_main
+
+    flags = BF16_FLAGS + ["--train.loss=lovasz"]
+    argv = flags + ["--train.epochs=1", f"--train.steps_per_epoch={BF16_TRAIN_STEPS}",
+                    "--data.val_split=0", "--train.checkpoint_dir=", "--train.log_every=0"]
+    kernels.reset_launches()
+    tr = train_main(argv)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    want = {k: 0 for k in counts}
+    want.update(lovasz_histograms=BF16_TRAIN_STEPS, lovasz_lookup=BF16_TRAIN_STEPS)
+    if counts != want or tr.step != BF16_TRAIN_STEPS:
+        raise AssertionError(f"bf16 train launches {counts} after {tr.step} steps")
+    losses = tr.step_losses
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        raise AssertionError(f"bf16 train losses: first 5 {first}, last 5 {last}")
+    if {p.dtype for p in tr.model.parameters()} != {torch.float32}:
+        raise AssertionError("bf16 training changed the parameters' dtype")
+    lat = []
+    gen = tr.pipeline.train_batches(TIMED_STEPS)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(gen, None)
+        if batch is None:
+            break
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    steady = lat[3:]
+    del tr, gen
+    out = {"launches": counts, "steps": BF16_TRAIN_STEPS, "loss_first5": first,
+           "loss_last5": last, "losses_every10": losses[::10],
+           "p50_step_ms": float(np.median(steady)) * 1e3,
+           "steady_imgs_per_s": BATCH * len(steady) / sum(steady),
+           "fp32_train_phase": {k: train[k] for k in ("p50_step_ms", "steady_imgs_per_s")}}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["captured_vs_eager"] = train_ab(flags, "bf16", lovasz=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    rows = {"fp32": [], "bf16": []}
+    for dt in ("fp32", "bf16", "bf16", "fp32"):
+        rows[dt].append(train_timing(["--train.loss=lovasz"]
+                                     + (BF16_FLAGS if dt == "bf16" else []), 1, False))
+    out["timing"] = rows
+    return out, counts
+
+
+def bf16_options() -> tuple:
+    """(d) A short bf16 run each with --train.mu_dtype=bfloat16 and with
+    --train.grads_bf16=true: the state's dtypes, finite losses."""
+    from tpuseg_torch.main import main as train_main
+
+    out, total = {}, {}
+    for label, flag in (("mu_dtype", "--train.mu_dtype=bfloat16"),
+                        ("grads_bf16", "--train.grads_bf16=true")):
+        kernels.reset_launches()
+        tr = train_main(BF16_FLAGS + [flag, "--train.loss=lovasz", "--train.epochs=1",
+                                      f"--train.steps_per_epoch={BF16_OPTION_STEPS}",
+                                      "--data.val_split=0", "--train.checkpoint_dir=",
+                                      "--train.log_every=0"])
+        torch.cuda.synchronize()
+        for k, v in kernels.launches.items():
+            total[k] = total.get(k, 0) + v
+        mu = {str(t.dtype) for t in tr.optimizer.state["mu"]}
+        nu = {str(t.dtype) for t in tr.optimizer.state["nu"]}
+        params = {str(p.dtype) for p in tr.model.parameters()}
+        want_mu = {"torch.bfloat16"} if label == "mu_dtype" else {"torch.float32"}
+        if mu != want_mu or nu != {"torch.float32"} or params != {"torch.float32"} or \
+                tr.step != BF16_OPTION_STEPS or not all(map(math.isfinite, tr.step_losses)):
+            raise AssertionError(f"bf16 {label}: mu {mu}, nu {nu}, params {params}, "
+                                 f"losses {tr.step_losses}")
+        out[label] = {"mu": sorted(mu), "nu": sorted(nu), "params": sorted(params),
+                      "losses": tr.step_losses}
+        del tr
+    return out, total
+
+
+def phase_bf16(perf, train: dict) -> dict:
+    """bf16 compute on the slice's paths: (a) the kernels, (b) serving,
+    (c) training, (d) the optimizer options."""
+    out = {"phase": "bf16", "kernels": bf16_kernel_rows(perf)}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        pth = Path(tmp) / "weights.pth"
+        seeded_weights(load_config([]), pth)
+        out["serve"], serve_counts = bf16_serve(pth, serve_frames())
+    out["train"], train_counts = bf16_train(train)
+    out["options"], option_counts = bf16_options()
+    out["path_launches"] = {k: serve_counts[k] + train_counts[k] + option_counts.get(k, 0)
+                            for k in serve_counts}
+    emit(out)
+    return out
+
+
 # the mesh phase: two ranks sharing the card over gloo (on a machine of one
 # card; NCCL refuses two ranks of one communicator on one device)
 MESH_RANKS, MESH_STEPS, MESH_TIMED, MESH_AB_STEPS, MESH_REPS = 2, 20, 10, 3, 20
@@ -2292,16 +2698,20 @@ def main() -> int:
         phase_graphs(pth, frames)
     train = phase_train(perf)
     packed = phase_train_packed(train)
+    bf16 = phase_bf16(perf, train)
     mesh = phase_mesh()
     train_counts = {k: train["launches"][k] + packed["launches"][k]
                     + sum(r["launches"].get(k, 0) for r in mesh["train"])
+                    + bf16["path_launches"][k]
                     for k in train["launches"]}
-    # the serving paths: the serve phase's batches and the video phase's
+    # the serving paths: the serve phase's batches, the video phase's and
+    # the bf16 phase's
     launches = {"argmax_colorize": serve_counts["argmax_colorize"]
-                + video_counts["argmax_colorize"],
+                + video_counts["argmax_colorize"] + bf16["path_launches"]["argmax_colorize"],
                 "upsample2x_argmax": head_counts["upsample2x_argmax"],
                 "fused_upsample_concat_conv": serve_counts["fused_upsample_concat_conv"]
-                + video_counts["fused_upsample_concat_conv"],
+                + video_counts["fused_upsample_concat_conv"]
+                + bf16["path_launches"]["fused_upsample_concat_conv"],
                 "lovasz_histograms": train_counts["lovasz_histograms"],
                 "lovasz_lookup": train_counts["lovasz_lookup"],
                 # no served or training path runs the block kernel, as no JAX
@@ -2331,6 +2741,14 @@ def main() -> int:
             "bound_tc_ms": dec["bound_tc_ms"], "bound_tc_route": dec["bound_tc_route"],
             "bound_fp32_ms": dec["bound_fp32_ms"],
             "per_call_ms": {k: r["ms"] for k, r in dec["per_call"].items()}}}
+    for k, r in bf16["kernels"].items():
+        extra.setdefault(k, {}).update(
+            {f"bf16_{f}": r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "max_abs_err")})
+    extra["fused_upsample_concat_conv"]["bf16_library_bf16_ms"] = \
+        bf16["kernels"]["fused_upsample_concat_conv"]["library_bf16_ms"]
+    for k in ("lovasz_histograms", "lovasz_lookup"):
+        extra[k]["bf16"] = "unchanged: the loss promotes the logits to fp32 first"
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": perf[k]["max_abs_err"],

@@ -139,7 +139,7 @@ def test_upconcat_scratch_is_the_size_the_plan_asks_for(card):
     out = torch.empty((b, h2, w2, cout), device=card)
     kernels._launch("upconcat_conv", card, skip.data_ptr(), x.data_ptr(), w.data_ptr(),
                     bias.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h2, w2, cs, cx,
-                    cout, sms)
+                    cout, sms, 0)
     torch.cuda.synchronize()
     assert bool((scratch[splits * n_out:] == 7.0).all())
     torch.testing.assert_close(out, kernels.fused_upconcat_plain(skip, x, w, bias),
@@ -364,8 +364,134 @@ def test_fused_inverted_residual_refuses_what_the_kernel_does_not_take(card):
         fused_inverted_residual(args[0].transpose(1, 2), *args[1:])
     with pytest.raises(ValueError, match="different devices"):
         fused_inverted_residual(args[0].cpu(), *args[1:])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_inverted_residual(args[0].bfloat16(), *args[1:])
+    with pytest.raises(TypeError):
+        fused_inverted_residual(args[0].half(), *args[1:])
+    with pytest.raises(TypeError):
+        fused_inverted_residual(args[0].bfloat16(), args[1].bfloat16(), *args[2:])
+
+
+# bf16 activations (ModelConfig.compute_dtype="bfloat16"): each kernel widens
+# them as it reads and computes in f32, as its plain version does
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 256, 10), (2, 7, 33, 10)])
+def test_bf16_argmax_colorize_matches_plain(card, shape):
+    logits = _randn(shape, 20).bfloat16()
+    before = kernels.launches["argmax_colorize"]
+    cls, col = kernels.argmax_colorize(logits, COLOR_MAP_BGR)
+    cls_p, col_p = kernels.argmax_colorize_plain(logits.float(), COLOR_MAP_BGR)
+    assert kernels.launches["argmax_colorize"] == before + 1
+    assert torch.equal(cls, cls_p)
+    assert np.array_equal(col.cpu().numpy(), col_p.cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+def test_bf16_upsample2x_argmax_matches_plain(card, shape):
+    logits = _randn(shape, 21).bfloat16()
+    before = kernels.launches["upsample2x_argmax"]
+    got = kernels.upsample2x_argmax(logits)
+    assert kernels.launches["upsample2x_argmax"] == before + 1
+    # the widened logits through the f32 taps, rounding order and '>'
+    assert torch.equal(got, kernels.upsample2x_argmax_plain(logits))
+    assert torch.equal(got, kernels.upsample2x_argmax(logits.float()))
+
+
+@pytest.mark.parametrize("case", UPCONCAT_CASES)
+def test_bf16_fused_upconcat_matches_plain(card, case):
+    skip, x, w, b = _upconcat_inputs(*case)
+    skip, x = skip.bfloat16(), x.bfloat16()
+    before = kernels.launches["fused_upsample_concat_conv"]
+    got = kernels.fused_upsample_concat_conv(skip, x, w, b)
+    assert kernels.launches["fused_upsample_concat_conv"] == before + 1
+    assert got.dtype == torch.float32
+    # the f32 kernel's algorithm on the widened inputs: the f32 tolerance
+    torch.testing.assert_close(got, kernels.fused_upconcat_plain(skip, x, w, b),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, kernels.fused_upsample_concat_conv(skip.float(), x.float(), w, b))
+
+
+@pytest.mark.parametrize("case", [c for _, c in MBCONV_CASES], ids=[i for i, _ in MBCONV_CASES])
+def test_bf16_fused_inverted_residual_matches_plain(card, case):
+    from tpuseg_torch.ops.mbconv import fused_inverted_residual, mbconv_plain
+
+    h, w, cin, hidden, cout, stride, use_res, expand, batch = case
+    seed = [c for _, c in MBCONV_CASES].index(case)
+    args = _mbconv_args(h, w, cin, hidden, cout, seed, batch=batch, expand=expand)
+    x = args[0].bfloat16()
+    before = kernels.launches["fused_inverted_residual"]
+    got = fused_inverted_residual(x, *args[1:], stride=stride, use_res=use_res)
+    assert kernels.launches["fused_inverted_residual"] == before + 1
+    assert got.dtype == torch.bfloat16
+    f32 = fused_inverted_residual(x.float(), *args[1:], stride=stride, use_res=use_res)
+    # the f32 route on the widened x, rounded once to nearest even
+    assert torch.equal(got, f32.bfloat16())
+    want = mbconv_plain(x, *args[1:], stride=stride, use_res=use_res)
+    # both round f32 values within 1e-4 of each other: one bf16 step apart
+    # at most where they straddle a rounding boundary
+    ulp = torch.finfo(torch.bfloat16).eps * want.float().abs().clamp(min=2.0 ** -126)
+    assert bool(((got.float() - want.float()).abs() <= ulp + ATOL).all())
+
+
+def test_bf16_wrappers_reject_other_half_types(card):
+    logits = _randn((1, 4, 8, 10), 22)
+    for fn in (kernels.upsample2x_argmax, lambda t: kernels.argmax_colorize(t, COLOR_MAP_BGR)):
+        with pytest.raises(TypeError):
+            fn(logits.half())
+    skip, x, w, b = _upconcat_inputs(1, 4, 4, 2, 2, 5)
+    with pytest.raises(TypeError):
+        kernels.fused_upsample_concat_conv(skip.half(), x.half(), w, b)
+    with pytest.raises(TypeError):
+        kernels.fused_upsample_concat_conv(skip.bfloat16(), x, w, b)
+    with pytest.raises(TypeError):
+        kernels.fused_upsample_concat_conv(skip.bfloat16(), x.bfloat16(), w.bfloat16(), b)
+
+
+def test_bf16_served_batch_launches_the_kernels(card, tmp_path):
+    """The full-width flagship in bf16 on the kernel route, served through
+    the Predictor: the decoder kernel reads the bf16 activations (4
+    launches a batch); the captured batch's class maps and colours equal
+    the same Predictor's eager ones; the class maps agree with a bf16
+    plain-path Predictor's on 98% of the pixels and the logits lie within
+    2^-4 of their largest magnitude from its logits (the two routes round
+    at other places: the JAX package's own two bf16 routes agree on 98.87%
+    at this size, tools/bf16_route_agreement.py)."""
+    from tpuseg_torch.configs import ModelConfig
+    from tpuseg_torch.core import graphs
+    from tpuseg_torch.core.prng import make_generator
+    from tpuseg_torch.core.weights import init_weights
+    from tpuseg_torch.infer.predictor import Predictor
+    from tpuseg_torch.models.registry import build_model
+
+    cfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, up_subpixel=False)
+    model = build_model(cfg)
+    init_weights(model, make_generator(0), random_bn=True)
+    path = tmp_path / "w.pth"
+    torch.save(model.state_dict(), path)
+    kw = dict(checkpoint=str(path), input_hw=(128, 256), batch_size=8)
+    pred = Predictor(cfg, **kw)
+    plain = Predictor(ModelConfig(compute_dtype="bfloat16", up_subpixel=False), **kw)
+    frames = np.random.RandomState(23).randint(0, 256, (8, 180, 320, 3), np.uint8)
+    kernels.reset_launches()
+    classes, colors = pred(frames)
+    assert kernels.launches["fused_upsample_concat_conv"] == 4
+    assert kernels.launches["argmax_colorize"] == 1
+    assert classes.shape == (8, 180, 320)
+    replayed = pred(frames)
+    assert pred._device_forward.replays() == 1
+    with graphs.eager():
+        eager = pred(frames)
+    for got in ((classes, colors), replayed):
+        assert all(np.array_equal(g, e) for g, e in zip(got, eager))
+    assert (classes == plain(frames)).mean() >= 0.98
+    x = torch.from_numpy(frames).cuda().float()
+    from tpuseg_torch.data.augment import normalize_images
+    from tpuseg_torch.ops.resize import resize_bilinear
+    x = normalize_images(resize_bilinear(x, 128, 256), pred.normalize_mean,
+                         pred.normalize_std).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        a, b = pred.model(x), plain.model(x)
+    assert a.dtype == torch.float32 and bool(a.isfinite().all())
+    assert float((a - b).abs().max()) <= 2 ** -4 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("upscale_on_host", [True, False])

@@ -143,8 +143,11 @@ def test_unported_checkpoints_models_and_paths_raise(tmp_path):
         state_dict_from_flax({"params": {}, "batch_stats": {}, "quant": {}})
     for name in ("mobilenetv2_unet", "unet", "light_unet", "mobilenetv2_fpn",
                  "mobilenetv2_deeplab"):
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            build_model(ModelConfig(name=name, compute_dtype="bfloat16"))
+        # bf16 compute builds every family, its parameters fp32
+        model = build_model(ModelConfig(name=name, compute_dtype="bfloat16"))
+        assert {p.dtype for p in model.parameters()} == {torch.float32}
+    with pytest.raises(ValueError, match="compute_dtype"):
+        build_model(ModelConfig(compute_dtype="float16"))
     with pytest.raises(NotImplementedError, match="artifact"):
         Predictor(ModelConfig(name="unet"), artifact="model.stablehlo", device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):

@@ -164,6 +164,8 @@ def test_wrapper_refuses_what_the_block_cannot_be():
         fused_inverted_residual(*t, stride=3)
     with pytest.raises(ValueError, match="wp"):
         fused_inverted_residual(*t[:7], t[7][:, :3].t(), *t[8:])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_inverted_residual(t[0].bfloat16(), *t[1:])
+    # bf16 activations are taken (computed in f32, written in bf16)
+    out = fused_inverted_residual(t[0].bfloat16(), *t[1:])
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, fused_inverted_residual(t[0].bfloat16().float(), *t[1:]).bfloat16())
     assert ModelConfig().compute_dtype == "float32"

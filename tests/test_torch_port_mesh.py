@@ -157,7 +157,8 @@ def groups(tmp_path_factory):
           "losses": (*_loss_inputs(), WEIGHTS),
           "batchnorm": _bn_inputs(),
           "clip": _clip_inputs(),
-          "trainer": (argv, ck)}
+          "trainer": (argv, ck),
+          "bf16_trainer": (argv,)}
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     w4 = {"sharded_lovasz": (2, 2, *_lovasz_inputs()), "spatial": _spatial_inputs(),
           "losses": (*_loss_inputs(), WEIGHTS, 2, 2)}
@@ -284,6 +285,16 @@ def test_world2_trainer_equals_one_process(groups, one_process_trainers):
     np.testing.assert_allclose(r0["losses"], one.step_losses, rtol=1e-4)
     for a, b in zip(r0["history"], one.history):
         assert a["val_miou"] == pytest.approx(b["val_miou"], abs=1e-3)
+
+
+def test_world2_trains_in_bf16_with_equal_parameters_on_both_ranks(groups):
+    """bf16 compute, a bf16 mu and bf16 gradients (cast after the fp32
+    all_reduce) over the mesh: finite losses, the parameters equal on both
+    ranks and fp32, mu bf16."""
+    r0, r1 = _ranks(groups, "bf16_trainer")
+    assert r0["trained"] == r1["trained"] and r0["losses"] == r1["losses"]
+    assert len(r0["losses"]) == 2 and all(np.isfinite(r0["losses"]))
+    assert r0["mu"] == {"torch.bfloat16"} and r0["params"] == {"torch.float32"}
 
 
 def test_world2_checkpoint_written_by_rank0_resumed_on_both(groups):

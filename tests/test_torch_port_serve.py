@@ -30,6 +30,7 @@ from tpuseg_torch.configs import ModelConfig
 from tpuseg_torch.core.prng import make_generator
 from tpuseg_torch.core.weights import init_weights
 from tpuseg_torch.infer import postprocess, predictor as port_predictor
+from tpuseg_torch.models.blocks import Conv2d
 from tpuseg_torch.models.registry import build_model
 from tpuseg_torch.tools import serve
 
@@ -153,6 +154,29 @@ def test_raw_upload_and_raw_response(server):
         _post(base + "/predict", frame.tobytes(),
               dict(_raw_headers(frame), **{"X-Shape": "nope"}))
     assert e.value.code == 400
+
+
+def test_compute_dtype_bfloat16_serves_a_bf16_model(pth):
+    """``--compute_dtype bfloat16``: every conv of the served model computes
+    in bf16, and the raw masks are those of a bf16 Predictor built on its
+    own from the same weights."""
+    args = serve.parse_args(["--model", "unet", "--base_filters", "8", "--width", "64",
+                             "--height", "32", "--port", "0", "--platform", "cpu",
+                             "--checkpoint", pth, "--compute_dtype", "bfloat16"])
+    base, state, httpd, thread = _start(serve.make_server, args)
+    try:
+        frame = _frame(seed=41, h=60, w=128)
+        with _post(base + "/predict?format=raw", frame.tobytes(), _raw_headers(frame)) as r:
+            mask = _read_raw(r)
+    finally:
+        _stop(httpd, thread, state)
+    convs = [m for m in state.predictor.model.modules() if isinstance(m, Conv2d)]
+    assert convs and {m.compute_dtype for m in convs} == {torch.bfloat16}
+    ref = port_predictor.Predictor(
+        ModelConfig(name="unet", base_filters=8, compute_dtype="bfloat16"), checkpoint=pth,
+        input_hw=(32, 64), batch_size=1, preprocess_on_host=True, device="cpu")
+    np.testing.assert_array_equal(mask, ref(np.ascontiguousarray(frame[..., ::-1])[None])[0])
+    assert len(np.unique(mask)) >= 2
 
 
 def test_predict_json_counts(server):

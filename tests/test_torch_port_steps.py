@@ -304,13 +304,6 @@ def test_optimizer_state_loads_in_place():
         Optimizer([torch.nn.Parameter(torch.ones(4))], optimizer="sgd").load_state_dict(saved)
 
 
-@pytest.mark.parametrize("flags", [["--train.mu_dtype=bfloat16"], ["--train.grads_bf16=true"]])
-def test_bf16_optimizer_options_raise(flags):
-    model = build_model(ModelConfig(name="unet", base_filters=4))
-    with pytest.raises(NotImplementedError, match="A15"):
-        build_optimizer(model, load_config(flags).train, TOTAL)
-
-
 def test_cosine_schedule_equals_optax():
     import optax
 

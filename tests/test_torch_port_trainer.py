@@ -99,7 +99,6 @@ def test_without_a_card_it_raises_unless_asked_for_the_cpu(monkeypatch, tmp_path
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--train.mu_dtype=bfloat16", "A15"), ("--train.grads_bf16=true", "A15"),
     ("--train.qat=true", "A11"),
     ("--train.distill_checkpoint=x", "A11"),
     ("--mesh.spatial=2", "A16"),

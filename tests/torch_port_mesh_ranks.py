@@ -169,6 +169,19 @@ def trainer(device, argv, ck: str):
                 sampler=again.pipeline.state() == tr.pipeline.state())
 
 
+def bf16_trainer(device, argv):
+    """A world-2 Trainer run in bf16 with a bf16 mu and bf16 gradients:
+    the losses, the parameters' digest and the state's dtypes."""
+    from tpuseg_torch.main import main
+
+    tr = main(["--platform=cpu", *argv, "--model.compute_dtype=bfloat16",
+               "--train.mu_dtype=bfloat16", "--train.grads_bf16=true",
+               "--train.checkpoint_dir="])
+    return dict(losses=tr.step_losses, trained=params_digest(tr.model),
+                mu={str(t.dtype) for t in tr.optimizer.state["mu"]},
+                params={str(p.dtype) for p in tr.model.parameters()})
+
+
 def predictor(device, frames, width: float, hw):
     """A Predictor over a world-2 data mesh on the whole batch of
     ``frames``: the class maps, then (colorize on) the class maps and

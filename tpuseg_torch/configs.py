@@ -29,7 +29,8 @@ class ModelConfig:
     # UNet width; 0 = the model's reference default.
     base_filters: int = 0
     width_mult: float = 1.0         # MobileNetV2 width multiplier
-    # params always fp32; "bfloat16" compute is not ported yet.
+    # params always fp32; "bfloat16" computes the activations in bf16
+    # (tpuseg_torch/core/dtypes.py).
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
     # Route the decoder's upsample+concat+conv (eval) and the Predictor's
     # argmax+colorize through the hand-written CUDA kernels.

@@ -9,11 +9,21 @@
 //   z   = relu6(dw3x3(pad1(y), wd, stride) * sd + bd)
 //   out = z @ wp * sp + bp   (+ x when use_res)
 //
-// x f32 [B,H,W,Cin], we [Cin,hid] or null, wd [3,3,hid], wp [hid,Cout],
-// per-channel affines se/be/sd/bd [hid] and sp/bp [Cout] -> out f32
-// [B, H/s, W/s, Cout] (H/s and W/s rounded down, as the reference's
-// ho = h // stride), all NHWC and contiguous. Neither hidden tensor (up to
-// 6x the block's width) is ever written to device memory.
+// x f32 or bf16 [B,H,W,Cin], we [Cin,hid] or null, wd [3,3,hid], wp
+// [hid,Cout], per-channel affines se/be/sd/bd [hid] and sp/bp [Cout] (all
+// f32) -> out [B, H/s, W/s, Cout] in x's dtype (H/s and W/s rounded down,
+// as the reference's ho = h // stride), all NHWC and contiguous. Neither
+// hidden tensor (up to 6x the block's width) is ever written to device
+// memory.
+//
+// bf16 x (the TPU kernel's `out.astype(out_ref.dtype)`, :133): x is widened
+// to f32 (exact) as it is staged, the block computes in f32 as below, the
+// residual adds the widened x in f32, and the output is rounded to bf16 once
+// (to nearest even). cp.async and bulk copies move bytes and cannot widen,
+// so x is staged by plain loads on that route (4 channels, 8 bytes, a
+// thread where Cin allows) and every span by cp.async, none by bulk copy.
+// The kernel is a template on x's element type, so the f32 instance keeps
+// none of this.
 //
 // Bound on the H100: operations. The encoder's 17 blocks at batch 8 and a
 // 256x128 input do 2.81 GFLOP, 2.58 of them in the two 1x1 products,
@@ -80,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace cg = cooperative_groups;
@@ -124,8 +136,9 @@ struct Cfg {
 };
 
 struct Args {
-  const float *x, *we, *se, *be, *wd, *sd, *bd, *wp, *sp, *bp;
-  float* out;
+  const void* x;                // T [B,H,W,Cin]
+  const float *we, *se, *be, *wd, *sd, *bd, *wp, *sp, *bp;
+  void* out;                    // T [B,Ho,Wo,Cout]
   int h, w, cin, hidden, cout, ho, wo, use_res;
   int tiles_w, tiles_hw, cout_tiles;
   int cs, per;                  // CTAs sharing a tile's hidden channels, channels each
@@ -198,9 +211,12 @@ __device__ __forceinline__ void for_rows(int rows, int cols, F f) {
     for (int c = c0; c < cols; c += 1 << sh) f(r, c);
 }
 
-template <int S, int K>
+// T is x's and out's element type: float, or __nv_bfloat16 (widened as it
+// is staged, the output rounded once)
+template <int S, int K, class T>
 __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const Args a) {
   using C = Cfg<S, K>;
+  constexpr bool F32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -218,7 +234,11 @@ __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const 
   const int hid0 = rank * a.per, hid1 = min(a.hidden, hid0 + a.per);
   const int nchunks = hid1 > hid0 ? (hid1 - hid0 + HC - 1) / HC : 0;
   const bool expand = a.we != nullptr;
-  const float* xb = a.x + (long long)img * a.h * a.w * a.cin;
+  const long long x0 = (long long)img * a.h * a.w * a.cin;   // this image's first x element
+  const T* xt = static_cast<const T*>(a.x);
+  T* outt = static_cast<T*>(a.out);
+  const T* xb = xt + x0;                // this image's x
+  const bool bulk = F32 && a.bulk;      // bulk copies cannot widen: f32 only
   const int xstride = a.kx + 4;
   float* xs = smem;                     // [m_in rounded to 16][kx + 4]: the clipped x patch
   float* ring = smem + a.off_ring;      // 2 x {we slice [kx][HS], wp slice [HC][wps]}
@@ -232,18 +252,31 @@ __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const 
   };
   auto slot = [&](int ci) { return ring + (ci & 1) * a.stage; };
 
+  // vw channels of x from element i of this image into shared dst (zeros
+  // where !ok): cp.async for f32 x, a widening load for bf16
+  auto stage_xv = [&](float* dst, long long i, bool ok, int vw) {
+    if constexpr (!F32) {
+      if (vw == 4)
+        *reinterpret_cast<float4*>(dst) =
+            ok ? load4_f32(xb + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      else
+        *dst = ok ? to_f32(xb[i]) : 0.f;
+    } else if (vw == 4) {
+      cp_async16(dst, ok ? xb + i : xt, ok);
+    } else {
+      cp_async4(dst, ok ? xb + i : xt, ok);
+    }
+  };
   auto stage_x = [&](int piece) {       // Cin channels piece*kx.. of the patch -> xs
     const int c0 = piece * a.kx, vw = a.vec_x ? 4 : 1;
     for_rows<C::NWARP>(m_in, a.kx / vw, [&](int r, int cq) {
       const int c = c0 + cq * vw;
-      const bool ok = c < a.cin;
-      const float* src = ok ? xb + image_pix(ptab[r]) * a.cin + c : a.x;
-      if (vw == 4)
-        cp_async16(xs + r * xstride + cq * 4, src, ok);
-      else
-        cp_async4(xs + r * xstride + cq, src, ok);
+      stage_xv(xs + r * xstride + cq * vw, image_pix(ptab[r]) * a.cin + c, c < a.cin, vw);
     });
   };
+  // the residual's x (widened) and the output's store (rounded for bf16)
+  auto x_res = [&](long long i) { return to_f32(__ldg(xt + i)); };
+  auto store_out = [&](long long i, float v) { store_as(outt + i, v); };
   auto stage_we = [&](int ci, int piece, float* dst) {   // we[piece rows, chunk ci] -> [kx][HS]
     const int hc = hid0 + ci * HC, kc = min(HC, hid1 - hc), c0 = piece * a.kx;
     const int vw = a.vec_we ? 4 : 1;
@@ -303,7 +336,10 @@ __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const 
     auto span = [&](int e, float*& d, const float*& s, int& len) {
       if (e < nx) {
         d = xs + e * xstride;
-        s = xb + image_pix(ptab[e]) * a.cin;
+        if constexpr (F32)
+          s = xb + image_pix(ptab[e]) * a.cin;
+        else
+          s = nullptr;            // not reached: bf16 x is never bulk-copied
         len = a.cin;
       } else if (e < n_we) {
         const int k = e - nx;
@@ -359,13 +395,13 @@ __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const 
   for_rows<C::NWARP>(py_hi - py_lo, cw, [&](int ry, int rx) {
     ptab[ry * cw + rx] = (py_lo + ry) * C::PW + px_lo + rx;
   });
-  if (tid == 0 && a.bulk) {
+  if (tid == 0 && bulk) {
     mbar_init(bars, 1);
     mbar_init(bars + 1, 1);
   }
   __syncthreads();
   const bool x_once = expand && a.nkx == 1;
-  if (nchunks > 0 && a.bulk) {
+  if (nchunks > 0 && bulk) {
     stage_bulk(0, true);
   } else if (nchunks > 0) {
     if (x_once) stage_x(0);
@@ -387,9 +423,9 @@ __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const 
     const int hc = hid0 + ci * HC, kc = min(HC, hid1 - hc), ks_n = (kc + 7) / 8;
     float* st = slot(ci);
     cp_async_wait_all();
-    if (a.bulk) mbar_wait(bars + (ci & 1), (ci >> 1) & 1);
+    if (bulk) mbar_wait(bars + (ci & 1), (ci >> 1) & 1);
     __syncthreads();              // chunk ci has landed; chunk ci-1 is done with the other slot
-    if (ci + 1 < nchunks && a.bulk) {
+    if (ci + 1 < nchunks && bulk) {
       stage_bulk(ci + 1, false);
     } else if (ci + 1 < nchunks) {
       if (x_once) stage_we(ci + 1, 0, slot(ci + 1));
@@ -497,11 +533,7 @@ __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const 
       for_rows<C::NWARP>(m_in, HC / vw, [&](int r, int jq) {
         const int j = jq * vw;
         const bool ok = j < kc;
-        const float* src = ok ? xb + image_pix(ptab[r]) * a.cin + hc + j : a.x;
-        if (vw == 4)
-          cp_async16(hs + ptab[r] * HS + j, src, ok);
-        else
-          cp_async4(hs + ptab[r] * HS + j, src, ok);
+        stage_xv(hs + ptab[r] * HS + j, image_pix(ptab[r]) * a.cin + hc + j, ok, vw);
       });
       cp_async_commit();
       cp_async_wait_all();
@@ -607,8 +639,8 @@ __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const 
           const int n = n0 + c + e;
           if (c + e >= ct) break;
           float v = prun[j / GJ][j % GJ][2 * hf + e] * __ldg(a.sp + n) + __ldg(a.bp + n);
-          if (a.use_res) v += __ldg(a.x + pix * a.cin + n);
-          a.out[pix * a.cout + n] = v;
+          if (a.use_res) v += x_res(pix * a.cin + n);
+          store_out(pix * a.cout + n, v);
         }
       }
     }
@@ -657,8 +689,8 @@ __global__ void __launch_bounds__(TILE_NT[K], TILE_MINB[K]) mbconv_kernel(const 
     for (int e = 0; e < vw; ++e) {
       const int n = n0 + c + e;
       float o = v[e] * __ldg(a.sp + n) + __ldg(a.bp + n);
-      if (a.use_res) o += __ldg(a.x + pix * a.cin + n);
-      a.out[pix * a.cout + n] = o;
+      if (a.use_res) o += x_res(pix * a.cin + n);
+      store_out(pix * a.cout + n, o);
     }
   });
   cluster.sync();                 // no CTA leaves while another reads its tile
@@ -721,9 +753,9 @@ bool make_plan(int b, int h, int w, int cin, int hidden, int cout, int stride, b
 
 // How many CTAs of this kernel the card runs at once in clusters of cs
 // (cs = 1: no cluster), from the occupancy API; 0 if it runs none
-template <int S, int K>
+template <int S, int K, class T>
 int concurrent(int cs, int smem, int sms) {
-  auto kernel = mbconv_kernel<S, K>;
+  auto kernel = mbconv_kernel<S, K, T>;
   int n = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
       cudaSuccess) {
@@ -754,14 +786,14 @@ int concurrent(int cs, int smem, int sms) {
   return n * cs;
 }
 
-template <int S>
+template <int S, class T>
 int concurrent_k(int k, int cs, int smem, int sms) {
   switch (k) {
-    case 0: return concurrent<S, 0>(cs, smem, sms);
-    case 1: return concurrent<S, 1>(cs, smem, sms);
-    case 2: return concurrent<S, 2>(cs, smem, sms);
-    case 3: return concurrent<S, 3>(cs, smem, sms);
-    default: return concurrent<S, 4>(cs, smem, sms);
+    case 0: return concurrent<S, 0, T>(cs, smem, sms);
+    case 1: return concurrent<S, 1, T>(cs, smem, sms);
+    case 2: return concurrent<S, 2, T>(cs, smem, sms);
+    case 3: return concurrent<S, 3, T>(cs, smem, sms);
+    default: return concurrent<S, 4, T>(cs, smem, sms);
   }
 }
 
@@ -771,6 +803,7 @@ int concurrent_k(int k, int cs, int smem, int sms) {
 // shared memory and how clusters pack into the GPCs) times each CTA's
 // work (its chunks plus about 1.5 chunks of prologue and epilogue).
 // Each CTA keeps 16 hidden channels or more.
+template <class T>
 void split_plan(int hidden, int stride, int sms, Plan* p) {
   const long long ctas = (long long)p->tiles * p->cout_tiles;
   long long best = -1;
@@ -780,8 +813,8 @@ void split_plan(int hidden, int stride, int sms, Plan* p) {
     if (cs > 1 && hidden < 16 * cs) break;
     const int per = round_up((hidden + cs - 1) / cs, 8);
     if ((hidden + per - 1) / per != cs) continue;
-    const int conc = stride == 1 ? concurrent_k<1>(p->k, cs, p->smem, sms)
-                                 : concurrent_k<2>(p->k, cs, p->smem, sms);
+    const int conc = stride == 1 ? concurrent_k<1, T>(p->k, cs, p->smem, sms)
+                                 : concurrent_k<2, T>(p->k, cs, p->smem, sms);
     if (conc < cs) continue;
     const long long waves = (ctas * cs + conc - 1) / conc;
     const long long cost = waves * (3 + 2 * ((per + HC - 1) / HC));
@@ -793,9 +826,9 @@ void split_plan(int hidden, int stride, int sms, Plan* p) {
   }
 }
 
-template <int S, int K>
+template <int S, int K, class T>
 int launch(const Args& a, long long grid, int smem, cudaStream_t stream) {
-  auto kernel = mbconv_kernel<S, K>;
+  auto kernel = mbconv_kernel<S, K, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -822,22 +855,50 @@ int launch(const Args& a, long long grid, int smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int S>
+template <int S, class T>
 int launch_k(int k, const Args& a, long long grid, int smem, cudaStream_t stream) {
   switch (k) {
-    case 0: return launch<S, 0>(a, grid, smem, stream);
-    case 1: return launch<S, 1>(a, grid, smem, stream);
-    case 2: return launch<S, 2>(a, grid, smem, stream);
-    case 3: return launch<S, 3>(a, grid, smem, stream);
-    default: return launch<S, 4>(a, grid, smem, stream);
+    case 0: return launch<S, 0, T>(a, grid, smem, stream);
+    case 1: return launch<S, 1, T>(a, grid, smem, stream);
+    case 2: return launch<S, 2, T>(a, grid, smem, stream);
+    case 3: return launch<S, 3, T>(a, grid, smem, stream);
+    default: return launch<S, 4, T>(a, grid, smem, stream);
   }
+}
+
+
+// The block for element type T: the split of the hidden channels, the
+// kernel's arguments, the launch
+template <class T>
+int run(const void* x, const float* we, const float* se, const float* be, const float* wd,
+        const float* sd, const float* bd, const float* wp, const float* sp, const float* bp,
+        void* out, int h, int w, int cin, int hidden, int cout, int stride, int use_res,
+        int sms, Plan p, cudaStream_t stream) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  split_plan<T>(hidden, stride, sms, &p);
+  const auto aligned = [](const void* q) { return ((uintptr_t)q & 15) == 0; };
+  // 4 channels of x a copy: 16 bytes of f32, 8 of bf16, aligned
+  const bool x_vec = cin % 4 == 0 && ((uintptr_t)x & (F32 ? 15 : 7)) == 0;
+  Args a = {x, we, se, be, wd, sd, bd, wp, sp, bp, out,
+            h, w, cin, hidden, cout, h / stride, w / stride, use_res,
+            p.tiles_w, p.tiles_hw, p.cout_tiles, p.cs, p.per, p.kx, p.nkx,
+            x_vec, hidden % 4 == 0 && (we == nullptr || aligned(we)),
+            cout % 4 == 0 && aligned(wp),
+            F32 && we != nullptr && p.nkx == 1 && cin % 8 == 0 && hidden % 8 == 0 &&
+                cout % 8 == 0 && aligned(x) && aligned(we) && aligned(wp) && aligned(wd) &&
+                aligned(se) && aligned(be) && aligned(sd) && aligned(bd),
+            p.wps, p.rs,
+            p.off_ring, p.stage, p.off_wp, p.off_prm, p.off_hs, p.off_ds, p.off_tab, p.off_bar};
+  const long long grid = (long long)p.tiles * p.cout_tiles * p.cs;
+  return stride == 1 ? launch_k<1, T>(p.k, a, grid, p.smem, stream)
+                     : launch_k<2, T>(p.k, a, grid, p.smem, stream);
 }
 
 }  // namespace
 
-// How tpuseg_mbconv splits the hidden channels for these sizes on a card
-// with `sms` SMs: *splits CTAs (one thread-block cluster) share each output
-// tile, each taking *per hidden channels (a multiple of 8). Returns a
+// How tpuseg_mbconv splits the hidden channels of f32 x for these sizes on
+// a card with `sms` SMs: *splits CTAs (one thread-block cluster) share each
+// output tile, each taking *per hidden channels (a multiple of 8). Returns a
 // cudaError_t.
 extern "C" int tpuseg_mbconv_plan(int b, int h, int w, int cin, int hidden, int cout,
                                   int stride, int expand, int sms, int* splits, int* per) {
@@ -846,19 +907,20 @@ extern "C" int tpuseg_mbconv_plan(int b, int h, int w, int cin, int hidden, int 
       h / stride < 1 || w / stride < 1 || !make_plan(b, h, w, cin, hidden, cout, stride,
                                                      expand != 0, &p))
     return (int)cudaErrorInvalidValue;
-  split_plan(hidden, stride, sms, &p);
+  split_plan<float>(hidden, stride, sms, &p);
   *splits = p.cs;
   *per = p.per;
   return 0;
 }
 
 // Launches on `stream`; returns a cudaError_t (0 on success). `we`, `se` and
-// `be` are null for a block without expand.
-extern "C" int tpuseg_mbconv(const float* x, const float* we, const float* se,
+// `be` are null for a block without expand. x and out are bf16 when `bf16`
+// is nonzero, else f32.
+extern "C" int tpuseg_mbconv(const void* x, const float* we, const float* se,
                              const float* be, const float* wd, const float* sd,
                              const float* bd, const float* wp, const float* sp,
-                             const float* bp, float* out, int b, int h, int w, int cin,
-                             int hidden, int cout, int stride, int use_res, int sms,
+                             const float* bp, void* out, int b, int h, int w, int cin,
+                             int hidden, int cout, int stride, int use_res, int sms, int bf16,
                              void* stream) {
   if ((stride != 1 && stride != 2) || sms < 1 || (we == nullptr && cin != hidden) ||
       (use_res && (stride != 1 || cin != cout)))
@@ -868,20 +930,9 @@ extern "C" int tpuseg_mbconv(const float* x, const float* we, const float* se,
   Plan p;
   if (!make_plan(b, h, w, cin, hidden, cout, stride, we != nullptr, &p))
     return (int)cudaErrorInvalidValue;
-  split_plan(hidden, stride, sms, &p);
-  const auto aligned = [](const void* q) { return ((uintptr_t)q & 15) == 0; };
-  Args a = {x, we, se, be, wd, sd, bd, wp, sp, bp, out,
-            h, w, cin, hidden, cout, h / stride, w / stride, use_res,
-            p.tiles_w, p.tiles_hw, p.cout_tiles, p.cs, p.per, p.kx, p.nkx,
-            cin % 4 == 0 && aligned(x), hidden % 4 == 0 && (we == nullptr || aligned(we)),
-            cout % 4 == 0 && aligned(wp),
-            we != nullptr && p.nkx == 1 && cin % 8 == 0 && hidden % 8 == 0 && cout % 8 == 0 &&
-                aligned(x) && aligned(we) && aligned(wp) && aligned(wd) && aligned(se) &&
-                aligned(be) && aligned(sd) && aligned(bd),
-            p.wps, p.rs,
-            p.off_ring, p.stage, p.off_wp, p.off_prm, p.off_hs, p.off_ds, p.off_tab, p.off_bar};
-  const long long grid = (long long)p.tiles * p.cout_tiles * p.cs;
   cudaStream_t s = (cudaStream_t)stream;
-  return stride == 1 ? launch_k<1>(p.k, a, grid, p.smem, s)
-                     : launch_k<2>(p.k, a, grid, p.smem, s);
+  return bf16 ? run<__nv_bfloat16>(x, we, se, be, wd, sd, bd, wp, sp, bp, out, h, w, cin,
+                                   hidden, cout, stride, use_res, sms, p, s)
+              : run<float>(x, we, se, be, wd, sd, bd, wp, sp, bp, out, h, w, cin, hidden,
+                           cout, stride, use_res, sms, p, s);
 }

@@ -6,10 +6,20 @@
 //
 //   out = conv3x3(cat([skip, up2x_half_pixel(x)], C), w, pad=1) + b
 //
-// skip f32 [B,2H,2W,Cs], x f32 [B,H,W,Cx], w f32 HWIO [3,3,Cs+Cx,Cout],
-// b f32 [Cout] -> out f32 [B,2H,2W,Cout], all NHWC and contiguous. Neither
-// the upsampled tensor nor the concat is ever written to device memory.
-// BatchNorm and the activation stay in the caller.
+// skip [B,2H,2W,Cs] and x [B,H,W,Cx] both f32 or both bf16, w f32 HWIO
+// [3,3,Cs+Cx,Cout], b f32 [Cout] -> out f32 [B,2H,2W,Cout], all NHWC and
+// contiguous. Neither the upsampled tensor nor the concat is ever written
+// to device memory. BatchNorm and the activation stay in the caller.
+//
+// bf16 skip and x are widened to f32 (exact) as they are staged, as the TPU
+// kernel widens its blocks (:259-260); the upsample, the products and the
+// sums are then the f32 kernel's, against the f32 weights, and the output
+// is f32 (the caller rounds it). cp.async copies bytes and cannot widen, so
+// the bf16 route stages skip and x by plain loads (4 values, 8 bytes, a
+// thread where the channel counts and pointers allow), widened into the
+// same f32 patch; the weights keep their cp.async ring. A widened bf16
+// value is exactly a TF32 value, so its small part is zero: a route that
+// skips that product is left for later.
 //
 // The GEMM: M = B*2H*2W output pixels, N = Cout, K = 9*(Cs+Cx). A is built
 // on the fly from a halo'd input patch in shared memory; B is the HWIO
@@ -77,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace {
@@ -114,9 +126,27 @@ __device__ __forceinline__ float lerp_rn(float a, float wa, float b, float wb) {
   return __fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb));
 }
 
-template <int BN>
+// stage 1 or 4 consecutive channels of skip or x at src (valid) into the
+// f32 patch at dst, zeros where !valid: cp.async for f32, a widening load
+// for bf16
+template <int VW>
+__device__ __forceinline__ void stage_in(float* dst, const float* src, bool valid) {
+  if (VW == 4)
+    cp_async16(dst, src, valid);
+  else
+    cp_async4(dst, src, valid);
+}
+template <int VW>
+__device__ __forceinline__ void stage_in(float* dst, const __nv_bfloat16* src, bool valid) {
+  if (VW == 4)
+    *reinterpret_cast<float4*>(dst) = valid ? load4_f32(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+  else
+    *dst = valid ? to_f32(*src) : 0.f;
+}
+
+template <int BN, typename T>
 __global__ void __launch_bounds__(NT, RESIDENT)
-upconcat_mma_kernel(const float* __restrict__ skip, const float* __restrict__ x,
+upconcat_mma_kernel(const T* __restrict__ skip, const T* __restrict__ x,
                     const float* __restrict__ wgt, const float* __restrict__ bias,
                     float* __restrict__ out, float* __restrict__ partial, int h2, int w2,
                     int cs, int cx, int cout, int tiles_w, int tiles_hw, int chunks_per_split,
@@ -133,8 +163,8 @@ upconcat_mma_kernel(const float* __restrict__ skip, const float* __restrict__ x,
   const int n0 = blockIdx.y * BN;
   const int k_begin = blockIdx.z * chunks_per_split;
   const int k_end = min((cin + CK - 1) / CK, k_begin + chunks_per_split);
-  const float* skip_b = skip + (long long)img * h2 * w2 * cs;
-  const float* x_b = x + (long long)img * h * w * cx;
+  const T* skip_b = skip + (long long)img * h2 * w2 * cs;
+  const T* x_b = x + (long long)img * h * w * cx;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp & 3, wn = warp >> 2;         // rows 2wm, 2wm+1; columns wn*BN/2..
@@ -151,11 +181,11 @@ upconcat_mma_kernel(const float* __restrict__ skip, const float* __restrict__ x,
         if (c >= cs) continue;
         const int gy = ty0 - 1 + pp / PW, gx = tx0 - 1 + pp % PW;
         const bool in = gy >= 0 && gy < h2 && gx >= 0 && gx < w2;
-        const float* src = in ? skip_b + ((long long)gy * w2 + gx) * cs + c : skip;
+        const T* src = in ? skip_b + ((long long)gy * w2 + gx) * cs + c : skip;
         if (vec_a)
-          cp_async16(patch + pp * CKP + ci, src, in);
+          stage_in<4>(patch + pp * CKP + ci, src, in);
         else
-          cp_async4(patch + pp * CKP + ci, src, in);
+          stage_in<1>(patch + pp * CKP + ci, src, in);
       }
     }
     const int vw = vec_w ? 4 : 1;
@@ -181,11 +211,11 @@ upconcat_mma_kernel(const float* __restrict__ skip, const float* __restrict__ x,
       const int ci = (e % (CK / vw)) * vw, sp = e / (CK / vw), c = c0 + ci;
       const int hy = sy0 + sp / SW, hx = sx0 + sp % SW;
       if (c < cs || c >= cin || hy < 0 || hy >= h || hx < 0 || hx >= w) continue;
-      const float* src = x_b + ((long long)hy * w + hx) * cx + (c - cs);
+      const T* src = x_b + ((long long)hy * w + hx) * cx + (c - cs);
       if (vec_a)
-        cp_async16(xsrc + sp * CKP + ci, src, true);
+        stage_in<4>(xsrc + sp * CKP + ci, src, true);
       else
-        cp_async4(xsrc + sp * CKP + ci, src, true);
+        stage_in<1>(xsrc + sp * CKP + ci, src, true);
     }
   };
 
@@ -351,21 +381,22 @@ void plan(int b, int h2, int w2, int cin, int cout, int sms, int* splits, int* p
   *splits = (int)((nchunks + *per - 1) / *per);
 }
 
-template <int BN>
-int launch(const float* skip, const float* x, const float* w, const float* bias, float* out,
+template <int BN, typename T>
+int launch(const T* skip, const T* x, const float* w, const float* bias, float* out,
            float* partial, int b, int h2, int w2, int cs, int cx, int cout, int splits,
            int per, cudaStream_t stream) {
   const int tiles_w = (w2 + TW - 1) / TW, tiles_hw = ((h2 + TH - 1) / TH) * tiles_w;
   const long long n_out = (long long)b * h2 * w2 * cout;
-  const auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  // 4 channels a copy: 16 bytes of f32, 8 of bf16, aligned
+  const auto aligned = [](const void* p) { return ((uintptr_t)p & (4 * sizeof(T) - 1)) == 0; };
   const int vec_a = cs % 4 == 0 && cx % 4 == 0 && aligned(skip) && aligned(x);
-  const int vec_w = cout % 4 == 0 && aligned(w);
+  const int vec_w = cout % 4 == 0 && ((uintptr_t)w & 15) == 0;
   const int smem = Smem<BN>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(upconcat_mma_kernel<BN>,
+  cudaError_t err = cudaFuncSetAttribute(upconcat_mma_kernel<BN, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(b * tiles_hw, (cout + BN - 1) / BN, splits);
-  upconcat_mma_kernel<BN><<<grid, NT, smem, stream>>>(
+  upconcat_mma_kernel<BN, T><<<grid, NT, smem, stream>>>(
       skip, x, w, bias, out, splits > 1 ? partial : nullptr, h2, w2, cs, cx, cout, tiles_w,
       tiles_hw, per, vec_a, vec_w, n_out);
   err = cudaGetLastError();
@@ -374,6 +405,15 @@ int launch(const float* skip, const float* x, const float* w, const float* bias,
   upconcat_reduce_kernel<<<(int)(blocks < 65536 ? blocks : 65536), NT, 0, stream>>>(
       partial, bias, out, n_out, cout, splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_t(const T* skip, const T* x, const float* w, const float* bias, float* out,
+             float* partial, int b, int h2, int w2, int cs, int cx, int cout, int splits,
+             int per, cudaStream_t s) {
+  return tile_n(cout) == 64
+             ? launch<64>(skip, x, w, bias, out, partial, b, h2, w2, cs, cx, cout, splits, per, s)
+             : launch<32>(skip, x, w, bias, out, partial, b, h2, w2, cs, cx, cout, splits, per, s);
 }
 
 }  // namespace
@@ -391,18 +431,21 @@ extern "C" int tpuseg_upconcat_plan(int b, int h2, int w2, int cs, int cx, int c
 
 // Launches on `stream`; returns a cudaError_t (0 on success). `partial` is
 // the scratch that tpuseg_upconcat_plan asks for, given the same `sms`
-// (null when it asks for none).
-extern "C" int tpuseg_upconcat_conv(const float* skip, const float* x, const float* w,
+// (null when it asks for none). skip and x are bf16 when `bf16` is
+// nonzero, else f32.
+extern "C" int tpuseg_upconcat_conv(const void* skip, const void* x, const float* w,
                                     const float* bias, float* out, float* partial, int b,
                                     int h2, int w2, int cs, int cx, int cout, int sms,
-                                    void* stream) {
+                                    int bf16, void* stream) {
   int splits = 1, per = 1;
   const int rc = tpuseg_upconcat_plan(b, h2, w2, cs, cx, cout, sms, &splits, &per);
   if (rc != 0 || (h2 & 1) || (w2 & 1) || (splits > 1 && !partial))
     return rc != 0 ? rc : (int)cudaErrorInvalidValue;
   if (b == 0 || h2 == 0 || w2 == 0 || cout == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  return tile_n(cout) == 64
-             ? launch<64>(skip, x, w, bias, out, partial, b, h2, w2, cs, cx, cout, splits, per, s)
-             : launch<32>(skip, x, w, bias, out, partial, b, h2, w2, cs, cx, cout, splits, per, s);
+  if (bf16)
+    return launch_t((const __nv_bfloat16*)skip, (const __nv_bfloat16*)x, w, bias, out, partial,
+                    b, h2, w2, cs, cx, cout, splits, per, s);
+  return launch_t((const float*)skip, (const float*)x, w, bias, out, partial, b, h2, w2, cs,
+                  cx, cout, splits, per, s);
 }

@@ -2,8 +2,10 @@
 // without the full-resolution logits ever existing.
 //
 // Replaces the TPU kernel tpuseg/ops/pallas_kernels.py:165 upsample2x_argmax
-// (body _up_w_argmax_kernel, :151): logits f32 [B,H,W,C] -> classes uint8
-// [B,2H,2W]. On the TPU the H contraction is an XLA einsum outside the
+// (body _up_w_argmax_kernel, :151): logits f32 or bf16 [B,H,W,C] ->
+// classes uint8 [B,2H,2W]. bf16 logits are widened to f32 (exact) as they
+// are staged, as the TPU wrapper widens them (:187), and everything after
+// is the f32 kernel's. On the TPU the H contraction is an XLA einsum outside the
 // kernel (:188-190) and the W contraction a matmul inside; here both are
 // inside, as two 2-tap lerps.
 //
@@ -23,7 +25,9 @@
 //   1. It stages the source rows the band needs (BR + 2: one above, one
 //      below), one contiguous span of floats each, into shared memory with
 //      16-byte cp.async where the span's alignment allows: all in flight at
-//      once, one wait, one barrier. The taps come meanwhile.
+//      once, one wait, one barrier. The taps come meanwhile. bf16 rows are
+//      loaded and widened by the threads instead (plain loads: cp.async
+//      copies bytes and cannot widen).
 //   2. A warp takes one source row k and a run of 30 source columns: lane l
 //      column m = 30 run + l - 1, lanes 0 and 31 only serving their columns
 //      to their neighbours. Per class a lane lerps its column in H once for
@@ -41,6 +45,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -63,9 +69,18 @@ __device__ __forceinline__ void keep_max(float v, int k, float& best, int& best_
   }
 }
 
+// the f32 staging's place for a row span starting at p: its place in its
+// 16-byte line, in floats; bf16 rows are staged from float 0
+template <typename T>
+__device__ __forceinline__ int stage_off(const T* p) {
+  if constexpr (std::is_same<T, float>::value) return al(p);
+  return 0;
+}
+
 // grid: B * bands * segments CTAs of br * runs warps. Shared memory:
 // br + 2 staged source rows of `stride` floats.
-__global__ void upsample2x_argmax_kernel(const float* __restrict__ x,
+template <typename T>
+__global__ void upsample2x_argmax_kernel(const T* __restrict__ x,
                                          const int4* __restrict__ row_taps,
                                          const int4* __restrict__ col_taps,
                                          uint8_t* __restrict__ out, int h, int w, int c,
@@ -85,14 +100,18 @@ __global__ void upsample2x_argmax_kernel(const float* __restrict__ x,
   // src and goes to smem float r * stride + al(src), so that both sides
   // share their alignment: 16-byte copies but for a head and a tail.
   for (int r = 0; r <= r_hi - r_lo; ++r) {
-    const float* src = x + ((long long)(img * h + r_lo + r) * w + c_lo) * c;
-    float* dst = smem + r * stride + al(src);
-    const int head = min(n, (4 - al(src)) & 3);
-    const int body = (n - head) / 4, tail0 = head + 4 * body;
-    for (int e = tid; e < body; e += nt) cp_async16(dst + head + 4 * e, src + head + 4 * e, true);
-    for (int e = tid; e < head + n - tail0; e += nt) {
-      const int q = e < head ? e : tail0 + e - head;
-      cp_async4(dst + q, src + q, true);
+    const T* src = x + ((long long)(img * h + r_lo + r) * w + c_lo) * c;
+    float* dst = smem + r * stride + stage_off(src);
+    if constexpr (std::is_same<T, float>::value) {
+      const int head = min(n, (4 - al(src)) & 3);
+      const int body = (n - head) / 4, tail0 = head + 4 * body;
+      for (int e = tid; e < body; e += nt) cp_async16(dst + head + 4 * e, src + head + 4 * e, true);
+      for (int e = tid; e < head + n - tail0; e += nt) {
+        const int q = e < head ? e : tail0 + e - head;
+        cp_async4(dst + q, src + q, true);
+      }
+    } else {
+      for (int e = tid; e < n; e += nt) dst[e] = to_f32(src[e]);
     }
   }
   cp_async_commit();
@@ -119,8 +138,8 @@ __global__ void upsample2x_argmax_kernel(const float* __restrict__ x,
   // column's values are never used) in the staged rows of its output rows
   const int mc = min(max(m, c_lo), c_hi) - c_lo;
   auto row_ptr = [&](int r) {
-    const float* src = x + ((long long)(img * h + r) * w + c_lo) * c;
-    return smem + (r - r_lo) * stride + al(src) + mc * c;
+    const T* src = x + ((long long)(img * h + r) * w + c_lo) * c;
+    return smem + (r - r_lo) * stride + stage_off(src) + mc * c;
   };
   const float *pa0 = row_ptr(ta.x), *pa1 = row_ptr(ta.y);   // output row 2k: rows lo, hi
   const float *pb0 = row_ptr(tb.x), *pb1 = row_ptr(tb.y);   // output row 2k+1
@@ -160,13 +179,9 @@ __global__ void upsample2x_argmax_kernel(const float* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// Launches on `stream`; returns a cudaError_t (0 on success). row_taps
-// [2H] and col_taps [2W] hold {lo, hi, float bits of 1 - frac, of frac}.
-extern "C" int tpuseg_upsample2x_argmax(const float* x, const int4* row_taps,
-                                        const int4* col_taps, uint8_t* out, int b, int h,
-                                        int w, int c, void* stream) {
+template <typename T>
+int launch(const T* x, const int4* row_taps, const int4* col_taps, uint8_t* out, int b,
+           int h, int w, int c, cudaStream_t stream) {
   if (b == 0 || h == 0 || w == 0) return (int)cudaGetLastError();
   if (c < 1 || c > 256 || w > 32767 || h > 32767 || ((uintptr_t)out & 1))
     return (int)cudaErrorInvalidValue;
@@ -187,10 +202,23 @@ extern "C" int tpuseg_upsample2x_argmax(const float* x, const int4* row_taps,
   const int segs = (w + runs * SPAN - 1) / (runs * SPAN), bands = (h + br - 1) / br;
   const long long grid = (long long)b * bands * segs;
   if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(upsample2x_argmax_kernel,
+  cudaError_t err = cudaFuncSetAttribute(upsample2x_argmax_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  upsample2x_argmax_kernel<<<(unsigned)grid, 32 * br * runs, smem, (cudaStream_t)stream>>>(
+  upsample2x_argmax_kernel<T><<<(unsigned)grid, 32 * br * runs, smem, stream>>>(
       x, row_taps, col_taps, out, h, w, c, br, runs, bands, segs, stride);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches on `stream`; returns a cudaError_t (0 on success). row_taps
+// [2H] and col_taps [2W] hold {lo, hi, float bits of 1 - frac, of frac}.
+// The logits are bf16 when `bf16` is nonzero, else f32.
+extern "C" int tpuseg_upsample2x_argmax(const void* x, const int4* row_taps,
+                                        const int4* col_taps, uint8_t* out, int b, int h,
+                                        int w, int c, int bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch((const __nv_bfloat16*)x, row_taps, col_taps, out, b, h, w, c, s)
+              : launch((const float*)x, row_taps, col_taps, out, b, h, w, c, s);
 }

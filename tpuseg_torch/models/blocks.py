@@ -16,7 +16,16 @@ directly:
   reference's ``inconv`` and ``down`` do.
 
 BatchNorm eps is 1e-5 and momentum 0.1 (torch's defaults, the same
-statistics as the JAX package's flax decay 0.9). Every BatchNorm is
+statistics as the JAX package's flax decay 0.9).
+
+bf16 compute (``core/dtypes.py::set_compute_dtype``) rounds where the
+JAX package's ``ConvBNAct`` rounds: every ``Conv2d`` below casts its input,
+weight and bias to the compute dtype and adds the bias to the rounded
+conv, as flax's ``nn.Conv(dtype=)``; BatchNorm runs on the input promoted
+to at least fp32 and returns the compute dtype; the activations run in
+it; the fused decoder kernel's and the subpixel rewrite's fp32 outputs are
+rounded to it before BatchNorm. The parameters stay fp32 and the
+state_dict keys do not change. Every BatchNorm is
 ``BatchNorm2d`` below, which follows flax in train mode: the running
 variance takes the biased batch variance, where ``nn.BatchNorm2d`` takes
 the unbiased n/(n-1) one. Inside ``frozen_running_stats()`` (the
@@ -78,11 +87,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     Over a mesh (``mesh`` set by ``set_mesh``; the data axis) train mode
     normalizes with the global batch's statistics, as flax's BatchNorm
     under a data-sharded jit: see ``_GlobalBatchNorm``. The running
-    statistics then move alike on every rank."""
+    statistics then move alike on every rank.
+
+    With ``compute_dtype`` set, the input is promoted to at least fp32
+    and the output cast to ``compute_dtype``, as the JAX ``ConvBNAct``'s
+    BatchNorm runs."""
 
     mesh = None
+    compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._normalize(x.to(torch.promote_types(torch.float32, x.dtype)))
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if self.mesh is not None and self.mesh.data_group is not None:
@@ -185,6 +203,22 @@ def hwio(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0).contiguous()
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` when it is set, as
+    flax's ``nn.Conv(dtype=...)``: the input, the weight and the bias cast
+    to it, the bias added to the conv's rounded result. None: the
+    parameters' dtype (``nn.Conv2d``'s own forward)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt).view(-1, 1, 1)
+
+
 class ConvBNAct(nn.Sequential):
     """Conv -> BatchNorm -> activation (torchvision's ConvBNActivation).
 
@@ -195,8 +229,8 @@ class ConvBNAct(nn.Sequential):
                  groups: int = 1, bias: bool = False,
                  act: Optional[Type[nn.Module]] = nn.ReLU6, dilation: int = 1):
         layers = [
-            nn.Conv2d(cin, cout, kernel, stride, dilation * (kernel - 1) // 2,
-                      dilation=dilation, groups=groups, bias=bias),
+            Conv2d(cin, cout, kernel, stride, dilation * (kernel - 1) // 2,
+                   dilation=dilation, groups=groups, bias=bias),
             BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
         ]
         if act is not None:
@@ -204,24 +238,23 @@ class ConvBNAct(nn.Sequential):
         super().__init__(*layers)
 
 
-def upconcat_conv(conv: nn.Conv2d, skip: torch.Tensor, x: torch.Tensor,
+def upconcat_conv(conv: Conv2d, skip: torch.Tensor, x: torch.Tensor,
                   impl: str, training: bool) -> torch.Tensor:
     """``conv(cat([skip, up2x(x)]))`` (NCHW in, NCHW out, before BN).
 
     impl "subpixel": exact composite-kernel rewrite (train and eval);
     "pallas": the fused CUDA kernel in eval (its plain version for CPU
     tensors); otherwise, or "pallas" in training, the materialized
-    upsample + concat + conv."""
-    if impl == "subpixel":
+    upsample + concat + conv. The first two give fp32, rounded to the
+    conv's compute dtype when it has one (``blocks.py:182, 212`` of the
+    JAX package)."""
+    if impl == "subpixel" or (impl == "pallas" and not training):
+        from tpuseg_torch.ops.kernels import fused_upsample_concat_conv
         from tpuseg_torch.ops.subpixel import up_concat_conv_subpixel
 
-        return nchw(up_concat_conv_subpixel(
-            nhwc(skip), nhwc(x), hwio(conv.weight), conv.bias))
-    if impl == "pallas" and not training:
-        from tpuseg_torch.ops.kernels import fused_upsample_concat_conv
-
-        return nchw(fused_upsample_concat_conv(
-            nhwc(skip), nhwc(x), hwio(conv.weight), conv.bias))
+        fn = up_concat_conv_subpixel if impl == "subpixel" else fused_upsample_concat_conv
+        y = fn(nhwc(skip), nhwc(x), hwio(conv.weight), conv.bias)
+        return nchw(y if conv.compute_dtype is None else y.to(conv.compute_dtype))
     if impl not in ("pallas", "materialize"):
         raise ValueError(f"unknown upconcat_impl {impl!r}")
     up = nchw(upsample2x_bilinear(x.permute(0, 2, 3, 1), align_corners=False))
@@ -237,10 +270,10 @@ class DoubleConv(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = nn.Sequential(
-            nn.Conv2d(cin, cout, 3, padding=1),
+            Conv2d(cin, cout, 3, padding=1),
             BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU(),
-            nn.Conv2d(cout, cout, 3, padding=1),
+            Conv2d(cout, cout, 3, padding=1),
             BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU(),
         )
@@ -307,10 +340,10 @@ class OutConv(nn.Module):
         super().__init__()
         half = cin // 2
         self.conv = nn.Sequential(
-            nn.Conv2d(cin, half, 1),
+            Conv2d(cin, half, 1),
             BatchNorm2d(half, eps=BN_EPS, momentum=BN_MOMENTUM),
             nn.ReLU(),
-            nn.Conv2d(half, classes, 1),
+            Conv2d(half, classes, 1),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

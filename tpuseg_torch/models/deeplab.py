@@ -21,7 +21,8 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from tpuseg_torch.models.blocks import ConvBNAct
+from tpuseg_torch.core.dtypes import cast_to_output
+from tpuseg_torch.models.blocks import Conv2d, ConvBNAct
 from tpuseg_torch.models.fpn import up_pow2
 from tpuseg_torch.models.mobilenetv2 import MobileNetV2Encoder
 
@@ -63,7 +64,7 @@ class MobileNetV2DeepLab(nn.Module):
         self.low_project = ConvBNAct(c2, low_level_channels, 1, bias=True, act=nn.ReLU)
         self.refine1 = ConvBNAct(low_level_channels + d, d, 3, bias=True, act=nn.ReLU)
         self.refine2 = ConvBNAct(d, d, 3, bias=True, act=nn.ReLU)
-        self.classifier = nn.Conv2d(d, output_channels, 1)
+        self.classifier = Conv2d(d, output_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, c2, _, _, c5 = self.backbone(x)
@@ -71,4 +72,4 @@ class MobileNetV2DeepLab(nn.Module):
         y = torch.cat([self.low_project(c2), y], dim=1)
         y = self.refine2(self.refine1(y))
         logits = self.classifier(y)
-        return up_pow2(logits.to(torch.promote_types(logits.dtype, torch.float32)), 2)
+        return up_pow2(cast_to_output(logits), 2)

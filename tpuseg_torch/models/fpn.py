@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from tpuseg_torch.models.blocks import ConvBNAct, nchw
+from tpuseg_torch.core.dtypes import cast_to_output
+from tpuseg_torch.models.blocks import Conv2d, ConvBNAct, nchw
 from tpuseg_torch.models.mobilenetv2 import MobileNetV2Encoder
 from tpuseg_torch.ops.resize import up_pow2_bilinear
 
@@ -46,7 +47,7 @@ class MobileNetV2FPN(nn.Module):
         for name in ("smooth", "head"):
             for k in "2345":
                 self.add_module(f"{name}{k}", ConvBNAct(d, d, 3, bias=True, act=nn.ReLU))
-        self.classifier = nn.Conv2d(d, output_channels, 1)
+        self.classifier = Conv2d(d, output_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, c2, c3, c4, c5 = self.backbone(x)
@@ -61,4 +62,4 @@ class MobileNetV2FPN(nn.Module):
             h = up_pow2(head(p), steps)       # to 1/4 resolution
             y = h if y is None else y + h
         logits = self.classifier(y)
-        return up_pow2(logits.to(torch.promote_types(logits.dtype, torch.float32)), 2)
+        return up_pow2(cast_to_output(logits), 2)

@@ -27,7 +27,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 import torch.nn as nn
 
-from tpuseg_torch.models.blocks import BN_EPS, BN_MOMENTUM, BatchNorm2d, ConvBNAct
+from tpuseg_torch.models.blocks import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv2d, ConvBNAct
 
 # (expand_ratio t, out_channels c, repeats n, first_stride s)
 INVERTED_RESIDUAL_SETTINGS: Tuple[Tuple[int, int, int, int], ...] = (
@@ -53,7 +53,8 @@ def make_divisible(v: float, divisor: int = 8) -> int:
 
 
 class InvertedResidual(nn.Module):
-    """expand 1x1 -> depthwise 3x3 -> project 1x1 (+residual when s=1, cin=cout)."""
+    """expand 1x1 -> depthwise 3x3 -> project 1x1 (+residual when s=1,
+    cin=cout; in the compute dtype, as the JAX block adds it)."""
 
     def __init__(self, cin: int, cout: int, stride: int, expand_ratio: int):
         super().__init__()
@@ -64,7 +65,7 @@ class InvertedResidual(nn.Module):
             layers.append(ConvBNAct(cin, hidden, 1))
         layers += [
             ConvBNAct(hidden, hidden, 3, stride, groups=hidden),
-            nn.Conv2d(hidden, cout, 1, bias=False),
+            Conv2d(hidden, cout, 1, bias=False),
             BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM),
         ]
         self.conv = nn.Sequential(*layers)

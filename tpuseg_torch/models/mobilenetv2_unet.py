@@ -14,22 +14,30 @@ memory format the logits' NHWC view is contiguous.
 
 ``use_pallas``, ``up_subpixel``, ``upsample_head`` and ``head_fp32`` are
 plain attributes read at every call: they change the path, never the
-state_dict. ``head_fp32`` has no effect while compute is fp32 (the only
-compute dtype the port runs; float64, which the parity tests use, stays
-float64 as in the JAX package).
+state_dict. ``head_fp32`` picks the final x2 upsample's dtype: True (the
+default) upsamples the fp32 logits in fp32; False, under bf16 compute
+(``compute_dtype``), rounds the logits, the upsample's taps and each of
+its two passes to bf16, as ``upsample2x_bilinear(compute_dtype=)`` of the
+JAX package does, and returns them widened to fp32. Under fp32 compute
+the two agree (float64, which the parity tests use, stays float64).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
+from tpuseg_torch.core.dtypes import cast_to_output
 from tpuseg_torch.models.blocks import OutConv, Up
 from tpuseg_torch.models.mobilenetv2 import MobileNetV2Encoder
 from tpuseg_torch.ops.resize import upsample2x_bilinear
 
 
 class MobileNetV2UNet(nn.Module):
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, output_channels: int = 10, width_mult: float = 1.0,
                  use_pallas: bool = False, stem_s2d: bool = False,
                  up_subpixel: bool = True, upsample_head: bool = True,
@@ -54,10 +62,11 @@ class MobileNetV2UNet(nn.Module):
         y = self.up2(y, x3, **flags)
         y = self.up3(y, x2, **flags)
         y = self.up4(y, x1, **flags)
-        y = self.outc(y)
-        y = y.to(torch.promote_types(y.dtype, torch.float32))
+        y = cast_to_output(self.outc(y))
         if not self.upsample_head:
             return y
         # final x2, align_corners=True, on the NHWC view
-        up = upsample2x_bilinear(y.permute(0, 2, 3, 1), align_corners=True)
-        return up.permute(0, 3, 1, 2)
+        head_dtype = None if self.head_fp32 else self.compute_dtype
+        up = upsample2x_bilinear(y.permute(0, 2, 3, 1), align_corners=True,
+                                 compute_dtype=head_dtype)
+        return cast_to_output(up).permute(0, 3, 1, 2)

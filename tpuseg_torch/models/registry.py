@@ -3,7 +3,8 @@
 The five families of the JAX package's registry, with its defaults:
 ``base_filters`` sets the FPN and ASPP widths (0 -> 128) and the UNets'
 (0 -> 64 and 32); ``stem_s2d`` reaches the two MobileNetV2 families that
-take it in the JAX package (FPN and DeepLab) and the flagship.
+take it in the JAX package (FPN and DeepLab) and the flagship; every
+family computes in ``compute_dtype`` (``core/dtypes.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from tpuseg_torch.configs import ModelConfig
-from tpuseg_torch.core.dtypes import torch_dtype
+from tpuseg_torch.core.dtypes import set_compute_dtype
 from tpuseg_torch.models.deeplab import MobileNetV2DeepLab
 from tpuseg_torch.models.fpn import MobileNetV2FPN
 from tpuseg_torch.models.mobilenetv2_unet import MobileNetV2UNet
@@ -64,12 +65,11 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> nn.Module:
     from tpuseg_torch.core.weights import init_weights
 
     _check_name(cfg.name)
-    torch_dtype(cfg.compute_dtype)  # raises for what the port cannot run
     with torch.device("meta"):
         model = MODEL_REGISTRY[cfg.name](cfg)
     model = model.to_empty(device="cpu")
     init_weights(model, make_generator(seed))
-    return model
+    return set_compute_dtype(model, cfg.compute_dtype)
 
 
 def size_divisor(model) -> int:

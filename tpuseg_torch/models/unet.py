@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from tpuseg_torch.core.dtypes import cast_to_output
 from tpuseg_torch.models.blocks import Down, InConv, OutConv, Up
 
 
@@ -48,8 +49,7 @@ class UNet(nn.Module):
         y = self.up1(x4, x3)
         y = self.up2(y, x2)
         y = self.up3(y, x1)
-        y = self.sem_out(y)
-        return y.to(torch.promote_types(y.dtype, torch.float32))
+        return cast_to_output(self.sem_out(y))
 
 
 class LightUNet(UNet):

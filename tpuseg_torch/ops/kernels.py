@@ -19,6 +19,12 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
 launch reports an error, and adds one to ``launches[<wrapper name>]``.
 
+Activations and logits may be fp32 or bf16, as the JAX functions take
+them (bf16 compute, ``ModelConfig.compute_dtype``): each kernel widens
+bf16 to fp32 as it reads and computes in fp32, and the decoder writes fp32
+(its caller rounds). On the card any other dtype raises ``TypeError``;
+weights and biases are fp32.
+
 The designs, and what bounds each on the H100 (the sources say more):
 
 - ``argmax_colorize``: one thread per pixel; bound by the bytes of the
@@ -74,15 +80,17 @@ def reset_launches() -> None:
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C symbol, argument types (pointers and the stream as void*)
+# (the int before the stream of the first three and mbconv: nonzero for bf16
+# activations)
 _SIGNATURES = {
-    "argmax_colorize": ("tpuseg_argmax_colorize", [_P, _P, _P, _P, _LL, _I, _P]),
-    "upsample2x_argmax": ("tpuseg_upsample2x_argmax", [_P] * 4 + [_I] * 4 + [_P]),
-    "upconcat_conv": ("tpuseg_upconcat_conv", [_P] * 6 + [_I] * 7 + [_P]),
+    "argmax_colorize": ("tpuseg_argmax_colorize", [_P, _P, _P, _P, _LL, _I, _I, _P]),
+    "upsample2x_argmax": ("tpuseg_upsample2x_argmax", [_P] * 4 + [_I] * 5 + [_P]),
+    "upconcat_conv": ("tpuseg_upconcat_conv", [_P] * 6 + [_I] * 8 + [_P]),
     "upconcat_plan": ("tpuseg_upconcat_plan", [_I] * 7 + [_P, _P]),
     "lovasz_histograms": ("tpuseg_lovasz_histograms", [_P, _P, _P, _P, _I, _LL, _I, _P]),
     "lovasz_hist_plan": ("tpuseg_lovasz_hist_plan", [_I, _LL, _I, _P]),
     "lovasz_lookup": ("tpuseg_lovasz_lookup", [_P, _P, _P, _I, _LL, _I, _P]),
-    "mbconv": ("tpuseg_mbconv", [_P] * 11 + [_I] * 9 + [_P]),
+    "mbconv": ("tpuseg_mbconv", [_P] * 11 + [_I] * 10 + [_P]),
     "mbconv_plan": ("tpuseg_mbconv_plan", [_I] * 9 + [_P, _P]),
 }
 # symbols that live in another source's library
@@ -121,12 +129,17 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     return dev.type == "cuda"
 
 
-def _require_f32_contiguous(**tensors: torch.Tensor) -> None:
+ACTIVATION_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _require_contiguous(dtypes=(torch.float32,), **tensors: torch.Tensor) -> None:
+    """Each tensor contiguous and of one of ``dtypes`` (TypeError)."""
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +180,8 @@ def argmax_colorize_plain(logits: torch.Tensor, palette_rgb: np.ndarray):
 
 
 def argmax_colorize(logits: torch.Tensor, palette_rgb: np.ndarray):
-    """Fused argmax + colorize: logits [B, H, W, C] f32 -> (uint8 [B,H,W]
-    classes, uint32 [B,H,W] packed 0x00RRGGBB colours)."""
+    """Fused argmax + colorize: logits [B, H, W, C] f32 or bf16 -> (uint8
+    [B,H,W] classes, uint32 [B,H,W] packed 0x00RRGGBB colours)."""
     if logits.ndim != 4:
         raise ValueError(f"logits must be [B, H, W, C], got {tuple(logits.shape)}")
     c = logits.shape[-1]
@@ -179,13 +192,14 @@ def argmax_colorize(logits: torch.Tensor, palette_rgb: np.ndarray):
         )
     if not _on_cuda(logits):
         return argmax_colorize_plain(logits, palette_rgb)
-    _require_f32_contiguous(logits=logits)
+    _require_contiguous(ACTIVATION_DTYPES, logits=logits)
     b, h, w, _ = logits.shape
     classes = torch.empty((b, h, w), dtype=torch.uint8, device=logits.device)
     colors = torch.empty((b, h, w), dtype=torch.uint32, device=logits.device)
     words = _words_for(palette_rgb, logits.device)
     _launch("argmax_colorize", logits.device, logits.data_ptr(), words.data_ptr(),
-            classes.data_ptr(), colors.data_ptr(), b * h * w, c)
+            classes.data_ptr(), colors.data_ptr(), b * h * w, c,
+            int(logits.dtype == torch.bfloat16))
     launches["argmax_colorize"] += 1
     return classes, colors
 
@@ -215,20 +229,21 @@ def _ac_true_tap_table(n: int, device: torch.device) -> torch.Tensor:
 def upsample2x_argmax(logits: torch.Tensor) -> torch.Tensor:
     """argmax over C of the exact x2 align_corners=True bilinear upsample.
 
-    logits [B, H, W, C] f32 -> classes uint8 [B, 2H, 2W]; the
-    full-resolution logits are never materialized."""
+    logits [B, H, W, C] f32 or bf16 (widened to f32, as the JAX function
+    widens) -> classes uint8 [B, 2H, 2W]; the full-resolution logits are
+    never materialized."""
     if logits.ndim != 4:
         raise ValueError(f"logits must be [B, H, W, C], got {tuple(logits.shape)}")
     if not 1 <= logits.shape[-1] <= 256:
         raise ValueError(f"uint8 classes need 1..256 classes, got {logits.shape[-1]}")
     if not _on_cuda(logits):
         return upsample2x_argmax_plain(logits)
-    _require_f32_contiguous(logits=logits)
+    _require_contiguous(ACTIVATION_DTYPES, logits=logits)
     b, h, w, c = logits.shape
     out = torch.empty((b, 2 * h, 2 * w), dtype=torch.uint8, device=logits.device)
     rows, cols = (_ac_true_tap_table(n, logits.device) for n in (h, w))
     _launch("upsample2x_argmax", logits.device, logits.data_ptr(), rows.data_ptr(),
-            cols.data_ptr(), out.data_ptr(), b, h, w, c)
+            cols.data_ptr(), out.data_ptr(), b, h, w, c, int(logits.dtype == torch.bfloat16))
     launches["upsample2x_argmax"] += 1
     return out
 
@@ -239,9 +254,10 @@ def upsample2x_argmax(logits: torch.Tensor) -> torch.Tensor:
 
 def fused_upconcat_plain(skip: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                          b: torch.Tensor) -> torch.Tensor:
-    """Plain version: conv3x3(cat([skip, up2x(x)]), w) + b, NHWC/HWIO, fp32."""
-    up = upsample2x_bilinear(x, align_corners=False)
-    cat = torch.cat([skip, up], dim=-1).to(torch.float32)
+    """Plain version: conv3x3(cat([skip, up2x(x)]), w) + b, NHWC/HWIO, fp32
+    (skip and x widened first, as the JAX kernel widens its blocks)."""
+    up = upsample2x_bilinear(x.to(torch.float32), align_corners=False)
+    cat = torch.cat([skip.to(torch.float32), up], dim=-1)
     y = F.conv2d(cat.permute(0, 3, 1, 2), w.to(torch.float32).permute(3, 2, 0, 1),
                  padding=1)
     return (y.permute(0, 2, 3, 1) + b.to(torch.float32)).contiguous()
@@ -275,12 +291,15 @@ def upconcat_plan(b: int, h2: int, w2: int, cs: int, cx: int, cout: int,
 def fused_upsample_concat_conv(skip: torch.Tensor, x: torch.Tensor,
                                w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """conv3x3(cat([skip, up2x(x)]), w) + b without materializing either
-    intermediate. skip [B,2H,2W,Cs], x [B,H,W,Cx], w [3,3,Cs+Cx,Cout],
-    b [Cout] -> f32 [B,2H,2W,Cout]."""
+    intermediate. skip [B,2H,2W,Cs] and x [B,H,W,Cx] (f32, or both bf16),
+    w [3,3,Cs+Cx,Cout] and b [Cout] f32 -> f32 [B,2H,2W,Cout]."""
     bsz, h2, w2, cs, cx, cout = _upconcat_shapes(skip, x, w, b)
     if not _on_cuda(skip, x, w, b):
         return fused_upconcat_plain(skip, x, w, b)
-    _require_f32_contiguous(skip=skip, x=x, w=w, b=b)
+    _require_contiguous(ACTIVATION_DTYPES, skip=skip, x=x)
+    _require_contiguous(w=w, b=b)
+    if skip.dtype != x.dtype:
+        raise TypeError(f"skip and x must share a dtype, got {skip.dtype} and {x.dtype}")
     out = torch.empty((bsz, h2, w2, cout), dtype=torch.float32, device=skip.device)
     sms = torch.cuda.get_device_properties(skip.device).multi_processor_count
     splits, _ = upconcat_plan(bsz, h2, w2, cs, cx, cout, sms)
@@ -288,6 +307,6 @@ def fused_upsample_concat_conv(skip: torch.Tensor, x: torch.Tensor,
                            device=skip.device) if splits > 1 else None)
     _launch("upconcat_conv", skip.device, skip.data_ptr(), x.data_ptr(), w.data_ptr(),
             b.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
-            bsz, h2, w2, cs, cx, cout, sms)
+            bsz, h2, w2, cs, cx, cout, sms, int(x.dtype == torch.bfloat16))
     launches["fused_upsample_concat_conv"] += 1
     return out

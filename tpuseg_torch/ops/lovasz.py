@@ -48,7 +48,7 @@ from typing import Callable, Optional
 import torch
 
 from tpuseg_torch.core.mesh import all_reduce_
-from tpuseg_torch.ops.kernels import (_c_fn, _launch, _on_cuda, _require_f32_contiguous,
+from tpuseg_torch.ops.kernels import (_c_fn, _launch, _on_cuda, _require_contiguous,
                                       launches)
 
 NB = 256
@@ -113,7 +113,7 @@ def lovasz_histograms(errors: torch.Tensor, fg: torch.Tensor):
         raise ValueError(f"fg {tuple(fg.shape)} and errors {tuple(errors.shape)} differ")
     if not _on_cuda(errors, fg):
         return lovasz_histograms_plain(errors, fg)
-    _require_f32_contiguous(errors=errors, fg=fg)
+    _require_contiguous(errors=errors, fg=fg)
     c, p = errors.shape
     sms = torch.cuda.get_device_properties(errors.device).multi_processor_count
     nblk = lovasz_hist_plan(c, p, sms)
@@ -162,7 +162,7 @@ def lovasz_lookup(errors: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"coef must be [{errors.shape[0]}, {NB}], got {tuple(coef.shape)}")
     if not _on_cuda(errors, coef):
         return lovasz_lookup_plain(errors, coef)
-    _require_f32_contiguous(errors=errors, coef=coef)
+    _require_contiguous(errors=errors, coef=coef)
     c, p = errors.shape
     nblk = max(1, min(1024, -(-p // (_THREADS * 8))))
     w = torch.empty_like(errors)

@@ -11,7 +11,10 @@ fused_inverted_residual   csrc/mbconv.cu               mbconv_plain
 One eval-mode block with BatchNorm folded into per-channel affines
 (``fold_bn_affine``): expand 1x1 + ReLU6 (absent at expand ratio 1),
 depthwise 3x3 at stride 1 or 2 with zero padding + ReLU6, project 1x1, and
-the residual. NHWC, fp32. The output has ``H // stride`` rows and
+the residual. NHWC; x fp32 or bf16 (widened as it is read, the block
+computed in fp32, the residual added from the widened x, the output
+rounded to x's dtype, as the JAX kernel's ``out_shape`` is ``x.dtype``),
+every weight and affine fp32. The output has ``H // stride`` rows and
 ``W // stride`` columns, as ``mbconv_reference``'s (a torch ``Conv2d`` would
 give ``(H + 1) // 2`` for odd H).
 
@@ -51,8 +54,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from tpuseg_torch.ops.kernels import (_c_fn, _launch, _on_cuda, _require_f32_contiguous,
-                                      launches)
+from tpuseg_torch.ops.kernels import (ACTIVATION_DTYPES, _c_fn, _launch, _on_cuda,
+                                      _require_contiguous, launches)
 
 
 def fold_bn_affine(bn_params: Mapping, bn_stats: Mapping, eps: float = 1e-5):
@@ -159,25 +162,24 @@ def fused_inverted_residual(x: torch.Tensor, we: Optional[torch.Tensor], se, be,
 
     x [B,H,W,Cin]; we [Cin,hidden] or None (expand_ratio 1, then se and be
     are None too); wd [3,3,hidden]; wp [hidden,Cout]; se/be/sd/bd [hidden]
-    and sp/bp [Cout] the folded BN affines. -> f32 [B, H//s, W//s, Cout]."""
+    and sp/bp [Cout] the folded BN affines. -> [B, H//s, W//s, Cout] in
+    x's dtype (f32 or bf16)."""
     b, h, w, cin, hidden, cout = _shapes(x, we, se, be, wd, sd, bd, wp, sp, bp,
                                          stride, use_res)
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bfloat16 activations are not ported yet (ROADMAP.md, A15: "
-            "bf16)")
-    tensors = dict(x=x, wd=wd, sd=sd, bd=bd, wp=wp, sp=sp, bp=bp)
+    weights = dict(wd=wd, sd=sd, bd=bd, wp=wp, sp=sp, bp=bp)
     if we is not None:
-        tensors.update(we=we, se=se, be=be)
-    if not _on_cuda(*tensors.values()):
+        weights.update(we=we, se=se, be=be)
+    if not _on_cuda(x, *weights.values()):
         return mbconv_plain(x, we, se, be, wd, sd, bd, wp, sp, bp, stride, use_res)
-    _require_f32_contiguous(**tensors)
+    _require_contiguous(ACTIVATION_DTYPES, x=x)
+    _require_contiguous(**weights)
     ho, wo = h // stride, w // stride
-    out = torch.empty((b, ho, wo, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     ptr = lambda t: None if t is None else t.data_ptr()
     _launch("mbconv", x.device, x.data_ptr(), ptr(we), ptr(se), ptr(be), wd.data_ptr(),
             sd.data_ptr(), bd.data_ptr(), wp.data_ptr(), sp.data_ptr(), bp.data_ptr(),
-            out.data_ptr(), b, h, w, cin, hidden, cout, stride, int(use_res), sms)
+            out.data_ptr(), b, h, w, cin, hidden, cout, stride, int(use_res), sms,
+            int(x.dtype == torch.bfloat16))
     launches["fused_inverted_residual"] += 1
     return out

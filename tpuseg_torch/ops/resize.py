@@ -23,6 +23,7 @@ from the scale factor, which for odd ratios is not the size ratio.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -99,13 +100,49 @@ def resize_bilinear(
     return y.to(orig_dtype)
 
 
-def upsample2x_bilinear(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _rounded_taps(n_in: int, n_out: int, align_corners: bool, device: torch.device,
+                  dtype: torch.dtype):
+    """(lo, hi, w_lo, w_hi) on ``device``: the two nonzero entries of each
+    row of ``_bilinear_matrix`` (1 - frac and frac, float64 rounded once to
+    float32), rounded to ``dtype`` and held in float32."""
+    lo, hi, frac = _taps64(n_in, n_out, align_corners)
+    with torch.inference_mode(False):     # a normal tensor: see _tap_tensors
+        idx = [torch.from_numpy(a).to(device) for a in (lo, hi)]
+        wts = [torch.from_numpy(a.astype(np.float32)).to(device, dtype).to(torch.float32)
+               for a in (1.0 - frac, frac)]
+    return (*idx, *wts)
+
+
+def _contract_rounded(x: torch.Tensor, axis: int, n_out: int, align_corners: bool,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """One axis of ``_apply_hw(compute_dtype=dtype)``: x (already in
+    ``dtype``) against the taps rounded to ``dtype``, each output's two
+    products summed in float32 and the sum rounded to ``dtype``."""
+    lo, hi, w_lo, w_hi = _rounded_taps(x.shape[axis], n_out, align_corners, x.device, dtype)
+    shape = [1] * x.ndim
+    shape[axis] = n_out
+    xf = x.to(torch.float32)
+    y = xf.index_select(axis, lo) * w_lo.reshape(shape) + xf.index_select(axis, hi) * w_hi.reshape(shape)
+    return y.to(dtype)
+
+
+def upsample2x_bilinear(x: torch.Tensor, align_corners: bool = False,
+                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x2 bilinear upsample of [..., H, W, C]: H, then W.
 
     The JAX package contracts with ``_bilinear_matrix`` here; the 2-tap
     form has the same two nonzero weights per row (equal up to one float32
-    rounding of 1 - frac) and never forms the matrix."""
-    return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], align_corners)
+    rounding of 1 - frac) and never forms the matrix. ``compute_dtype``
+    (bf16 for the reduced-traffic head) is the storage dtype of the
+    contraction, as the JAX package's: x, the taps and each pass's result
+    rounded to it, each 2-tap sum taken in float32; the result is in it.
+    None: at least float32, and ``x.dtype`` back."""
+    if compute_dtype is None:
+        return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], align_corners)
+    y = x.to(compute_dtype)
+    y = _contract_rounded(y, x.ndim - 3, 2 * x.shape[-3], align_corners, compute_dtype)
+    return _contract_rounded(y, x.ndim - 2, 2 * x.shape[-2], align_corners, compute_dtype)
 
 
 def up_pow2_bilinear(x: torch.Tensor, times: int) -> torch.Tensor:

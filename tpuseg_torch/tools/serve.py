@@ -3,6 +3,7 @@ stdlib HTTP API, the port of the JAX package's ``tools/serve.py``.
 
     python -m tpuseg_torch.tools.serve --checkpoint model.pth --port 8017
     python -m tpuseg_torch.tools.serve --platform=cpu --model unet --base_filters 8
+    python -m tpuseg_torch.tools.serve --checkpoint model.pth --compute_dtype bfloat16
 
     curl -s localhost:8017/healthz
     curl -s -X POST -H 'Content-Type: application/octet-stream' -H 'X-Shape: 360,640,3' \
@@ -73,7 +74,8 @@ def build_predictor(args):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ModelConfig(name=args.model, num_classes=args.num_classes,
-                      base_filters=args.base_filters, head_fp32=not args.bf16_head)
+                      base_filters=args.base_filters, head_fp32=not args.bf16_head,
+                      compute_dtype=args.compute_dtype)
     mean = tuple(float(v) for v in args.normalize_mean.split(",")) \
         if args.normalize_mean else None
     std = tuple(float(v) for v in args.normalize_std.split(",")) \
@@ -376,6 +378,8 @@ def parse_args(argv=None):
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--height", type=int, default=128)
     p.add_argument("--bf16_head", action="store_true")
+    p.add_argument("--compute_dtype", default="float32", choices=("float32", "bfloat16"),
+                   help="the model's compute dtype (ModelConfig.compute_dtype)")
     p.add_argument("--normalize_mean", default="")
     p.add_argument("--normalize_std", default="")
     p.add_argument("--host", default="127.0.0.1")

@@ -16,7 +16,21 @@ The port of ``Trainer._build_optimizer`` (``tpuseg/train/trainer.py``):
 - ``clip_norm > 0``: the global L2 norm clip of the (k-averaged) gradient;
 - ``accum > 1``: ``optax.MultiSteps``: the gradients' running mean over k
   micro-steps; the inner update, and the counts that drive the bias
-  correction and the schedule, move on the k-th only.
+  correction and the schedule, move on the k-th only;
+- ``mu_dtype`` (``--train.mu_dtype``, None or bf16): the dtype in which
+  Adam's first moment, or SGD's momentum trace (optax's
+  ``accumulator_dtype``), is stored. As optax's ``scale_by_adam``, the
+  update is taken from the new moment before it is cast for storing
+  (``mu_hat`` from the uncast moment); ``b1 * mu`` reads the stored one,
+  so it is rounded to its dtype, as JAX rounds a python float times a bf16
+  array. ``nu`` stays in the parameters' dtype.
+
+The gradients handed to ``step`` may be bf16 (``grads_bf16``, cast by the
+train step), and then every formula above rounds where optax's does with
+bf16 leaves: torch and JAX promote a python float times a bf16 tensor to
+bf16, and bf16 with fp32 to fp32. The global norm of the clip is taken
+as optax's is, over the bf16 leaves: each leaf's squared sum in bf16, the
+leaves summed one by one, as optax's python ``sum`` adds them.
 
 Every count and the learning rate are device tensors that the step itself
 advances, and no step reads a device value on the host, so a CUDA graph
@@ -32,6 +46,7 @@ in place, so a captured step still points at it after a resume.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional
 
@@ -41,6 +56,19 @@ import torch.nn as nn
 from tpuseg_torch.core.mesh import all_reduce_
 
 OPTIMIZERS = ("adam", "adamw", "sgd")
+MU_DTYPES = {"": None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _weak(v: float, t: torch.Tensor) -> float:
+    """The python float ``v`` as JAX applies it to ``t``: a weakly typed
+    scalar takes ``t``'s dtype, so against a bf16 tensor it is rounded to
+    bf16 first (torch would multiply by the unrounded value in fp32)."""
+    return v if t.dtype != torch.bfloat16 else _bf16(v)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.float64).to(torch.bfloat16))
 
 
 class Optimizer:
@@ -50,7 +78,8 @@ class Optimizer:
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 1e-4, momentum: float = 0.9,
                  lr_schedule: str = "", warmup_steps: int = 0, total_steps: int = 0,
-                 clip_norm: float = 0.0, accum: int = 1, ema_decay: float = 0.0):
+                 clip_norm: float = 0.0, accum: int = 1, ema_decay: float = 0.0,
+                 mu_dtype: Optional[torch.dtype] = None):
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if lr_schedule not in ("", "cosine"):
@@ -65,15 +94,16 @@ class Optimizer:
             lr_schedule, warmup_steps, total_steps)
         self.clip_norm, self.accum, self.ema_decay = clip_norm, max(1, accum), ema_decay
         p0 = self.params[0]
-        zeros = lambda: [torch.zeros_like(p, memory_format=torch.preserve_format)
-                         for p in self.params]
+        zeros = lambda dtype=None: [torch.zeros_like(p, dtype=dtype,
+                                                     memory_format=torch.preserve_format)
+                                    for p in self.params]
         self.state: Dict[str, object] = {
             # inner updates applied (optax's adam/schedule count)
             "count": torch.zeros((), dtype=torch.int64, device=p0.device)}
         if optimizer == "sgd":
-            self.state["trace"] = zeros()
+            self.state["trace"] = zeros(mu_dtype)
         else:
-            self.state["mu"], self.state["nu"] = zeros(), zeros()
+            self.state["mu"], self.state["nu"] = zeros(mu_dtype), zeros()
         if self.accum > 1:
             self.state["mini_step"] = torch.zeros((), dtype=torch.int64, device=p0.device)
             self.state["acc"] = zeros()
@@ -126,9 +156,13 @@ class Optimizer:
             p.grad.copy_(part.view(p.shape))
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
+        """One update from ``grads`` (default: the parameters' own
+        gradients; the train step hands bf16 casts of them under
+        ``grads_bf16``). New moments are stored in place, cast to their
+        state's dtype."""
         st = self.state
-        grads = self.grads()
+        grads = self.grads() if grads is None else grads
         emit = None
         if self.accum > 1:
             n = st["mini_step"]
@@ -137,23 +171,29 @@ class Optimizer:
             emit = n == self.accum - 1
             grads = acc
         if self.clip_norm > 0:
-            # optax's global_norm: sqrt of the sum of the leaves' squared sums
-            norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
-            keep = norm < self.clip_norm
-            grads = [torch.where(keep, g, (g / norm.to(g.dtype)) * self.clip_norm)
+            # optax's global_norm: sqrt of the sum of the leaves' squared
+            # sums, added leaf by leaf in the leaves' dtype
+            norm = sum(torch.sum(g * g) for g in grads)
+            norm = torch.sqrt(norm)
+            keep = norm < _weak(self.clip_norm, norm)
+            grads = [torch.where(keep, g, (g / norm.to(g.dtype)) * _weak(self.clip_norm, g))
                      for g in grads]
         count = st["count"]
         dtype = self.params[0].dtype
         if self.kind == "sgd":
-            new_trace = [g + self.momentum * t for g, t in zip(grads, st["trace"])]
+            new_trace = [g + _weak(self.momentum, t) * t for g, t in zip(grads, st["trace"])]
             updates = new_trace
             new_state = {"trace": new_trace}
         else:
             c1 = (count + 1).to(dtype)
-            new_mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(grads, st["mu"])]
-            new_nu = [(1 - self.b2) * (g * g) + self.b2 * v for g, v in zip(grads, st["nu"])]
+            new_mu = [_weak(1 - self.b1, g) * g + _weak(self.b1, m) * m
+                      for g, m in zip(grads, st["mu"])]
+            new_nu = [_weak(1 - self.b2, g) * (g * g) + _weak(self.b2, v) * v
+                      for g, v in zip(grads, st["nu"])]
             bc1, bc2 = 1 - torch.pow(self.b1, c1), 1 - torch.pow(self.b2, c1)
-            updates = [(m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            # the update from the new moments as they are, before mu is
+            # cast for storing (optax's order)
+            updates = [(m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype)) + self.eps)
                        for m, v in zip(new_mu, new_nu)]
             if self.kind == "adamw":
                 updates = [u + self.weight_decay * p for u, p in zip(updates, self.params)]
@@ -236,12 +276,11 @@ def build_optimizer(model: nn.Module, cfg_train, total_steps: int = 0) -> Optimi
     """The Trainer's chain from ``train`` config fields; ``total_steps`` is
     the cosine horizon (epochs * steps per epoch)."""
     t = cfg_train
-    if t.mu_dtype or t.grads_bf16:
-        raise NotImplementedError(
-            f"{'mu_dtype' if t.mu_dtype else 'grads_bf16'} is not ported yet "
-            "(ROADMAP.md A15, bf16)")
+    if t.mu_dtype not in MU_DTYPES:
+        raise ValueError(f"train.mu_dtype={t.mu_dtype!r}: expected ''|'bfloat16'|'float32'")
     return Optimizer(model.parameters(), optimizer=t.optimizer, lr=t.lr, b1=t.b1, b2=t.b2,
                      eps=t.eps, weight_decay=t.weight_decay, momentum=t.momentum,
                      lr_schedule=t.lr_schedule, warmup_steps=t.warmup_steps,
                      total_steps=max(1, total_steps), clip_norm=t.grad_clip_norm,
-                     accum=t.grad_accum, ema_decay=t.ema_decay)
+                     accum=t.grad_accum, ema_decay=t.ema_decay,
+                     mu_dtype=MU_DTYPES[t.mu_dtype])

@@ -7,7 +7,10 @@ formulas), updated in place, and a step on the card is a replay of a
 captured CUDA graph (``core/graphs.py``): augment, forward in train mode
 (BatchNorm on batch statistics, running statistics moved as flax moves
 them), loss, backward, clip, update and EMA, all in one graph. On the CPU,
-or inside ``graphs.eager()``, the same body runs op by op.
+or inside ``graphs.eager()``, the same body runs op by op. ``grads_bf16``
+casts the gradients to bf16 between the backward and the update, as the
+JAX step does (over a mesh, after their all_reduce in fp32, as JAX's psum
+inside the gradient comes before its cast).
 
 Images enter the steps channels-last ([B, H, W, 3], the JAX layout); the
 model sees an NCHW view of them, and the loss the logits' NHWC view.
@@ -95,7 +98,7 @@ def _uncaptured(mesh, name: str) -> bool:
 def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Callable] = None,
                    augment_fn: Optional[Callable] = None,
                    generator: Optional[torch.Generator] = None, remat: bool = False,
-                   debug_nans: bool = False, mesh=None) -> Callable:
+                   debug_nans: bool = False, mesh=None, grads_bf16: bool = False) -> Callable:
     """One uncaptured step, ``(images, labels) -> loss`` (a detached device
     scalar). With ``augment_fn`` it takes uint8 images and masks and
     augments them first, drawing from ``generator``. Over ``mesh`` it
@@ -122,7 +125,10 @@ def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Cal
             optimizer.sum_grads(mesh)
         if debug_nans:
             _check_finite(loss, named)
-        optimizer.step()
+        grads = None
+        if grads_bf16:
+            grads = [g.to(torch.bfloat16) for g in optimizer.grads()]
+        optimizer.step(grads)
         return loss.detach()
 
     return body
@@ -131,7 +137,7 @@ def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Cal
 def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Callable] = None,
                     augment_fn: Optional[Callable] = None,
                     generator: Optional[torch.Generator] = None, remat: bool = False,
-                    debug_nans: bool = False, mesh=None) -> Callable:
+                    debug_nans: bool = False, mesh=None, grads_bf16: bool = False) -> Callable:
     """The step: ``(images f32 [B,H,W,3], labels [B,H,W]) -> {"loss"}``; or,
     with ``augment_fn``, ``(images u8, masks u8) -> {"loss"}`` with the
     augmentation (drawing from ``generator``) fused in front. ``loss_fn``
@@ -143,7 +149,7 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Ca
     next call: reading it is the caller's choice of when to sync. Over
     ``mesh`` the step is the global one (see the module), uncaptured."""
     body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans,
-                          mesh)
+                          mesh, grads_bf16)
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {"loss": body(images, labels)}
@@ -157,13 +163,14 @@ def make_train_multi_step(k: int, model: nn.Module, optimizer: Optimizer,
                           loss_fn: Optional[Callable] = None,
                           augment_fn: Optional[Callable] = None,
                           generator: Optional[torch.Generator] = None, remat: bool = False,
-                          debug_nans: bool = False, mesh=None) -> Callable:
+                          debug_nans: bool = False, mesh=None,
+                          grads_bf16: bool = False) -> Callable:
     """K steps per dispatch, the port of ``make_train_multi_step``:
     ``(images [K, B, ...], labels [K, B, ...]) -> {"loss": [K]}``, the same
     arithmetic as K calls of the single step, captured as one graph (over
     ``mesh``, K global steps, uncaptured)."""
     body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans,
-                          mesh)
+                          mesh, grads_bf16)
 
     def multi_step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         if images.shape[0] != k or labels.shape[0] != k:

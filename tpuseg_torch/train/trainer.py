@@ -152,7 +152,7 @@ class Trainer:
         self.steps_per_dispatch = max(1, t.steps_per_dispatch)
         step_kw = dict(loss_fn=self._build_loss(), augment_fn=self.augment,
                        generator=self.aug_generator, remat=t.remat, debug_nans=t.debug_nans,
-                       mesh=self.mesh)
+                       mesh=self.mesh, grads_bf16=t.grads_bf16)
         if self.steps_per_dispatch > 1:
             self.train_step = make_train_multi_step(self.steps_per_dispatch, self.model,
                                                     self.optimizer, **step_kw)
