@@ -108,6 +108,32 @@ printing one JSON line; any failure raises and exits nonzero:
              synthetic ones; 3 captured steps with the heavy augment
              bit-equal to 3 under ``graphs.eager()`` (deterministic
              algorithms; the Lovász value within its atomics' tolerance);
+7b. train_contact — the training path as a user of the JAX package runs
+             it, from the same packed scenes, the flagship at 10 classes,
+             256x128, batch 8: (1) a full-width torchvision-named
+             mobilenet_v2 state_dict made from a seed through
+             ``tpuseg_torch.tools.import_pretrained`` (the encoder equal to
+             its source, the decoder to the seeded init); (2) 40 captured
+             steps of --train.qat=true --train.loss=lovasz from it (the loss
+             falls, both Lovász kernels once a step, 61 QAT convs, the
+             state_dict's keys and shapes as without QAT, fake_quant_act and
+             fake_quant_kernel on every QAT conv's input and weight
+             bit-equal card against CPU, 3 captured steps bit-equal to
+             eager), timed in turns against plain Lovász training with the
+             subpixel and with the materialized decoder; (3) 40 captured
+             steps of a mobilenetv2_fpn student distilled from that run's
+             checkpoint (alpha 0.5, T 2: the loss falls, the in-step teacher
+             logits bit-equal to an eval forward of the teacher, 3 captured
+             steps bit-equal to eager), timed in turns against the student
+             alone, with the teacher forward's device time and share;
+             (4) ``tpuseg_torch.tools.eval_miou`` on the QAT checkpoint
+             (64 synthetic scenes) equal to the Trainer's own evaluate of
+             it (the same confusion matrix), with its images/s; (5) 3 steps
+             of QAT and distillation over two ranks sharing the card over
+             gloo: every QAT conv's activation scale on both ranks equal,
+             bit for bit, to the scale over the global batch that one
+             process takes (the max of the ranks' absmaxes), the parameters
+             bit-equal across ranks;
 8. mesh    — data parallelism: two ranks started by
              ``tpuseg_torch.core.mesh.launch_local`` on the card over gloo
              (with a card per rank, NCCL): the sharded Lovász on each
@@ -162,7 +188,8 @@ boxes off.
 Then the kernels summary line, nvidia-smi's line, and, last, the result
 line {"ok": true, "device": {...}}. A kernel's ``launches`` there are its
 launches on the serving (serve and video phases) or training path (train,
-train_packed and the mesh phase's 20 steps on each rank); fused_inverted_residual runs on
+train_packed, train_contact's QAT and distilled runs and its 3 steps on
+each rank, and the mesh phase's 20 steps on each rank); fused_inverted_residual runs on
 no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
 result. fp32 comparisons run with TF32 off for both cuDNN and matmul. The
@@ -317,7 +344,8 @@ def device_ms(fn, inputs, replays: int = 20) -> float:
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+    with graphs.no_collection(), torch.cuda.stream(stream), torch.cuda.graph(graph,
+                                                                             stream=stream):
         for args in inputs:
             fn(*args)
     torch.cuda.synchronize()
@@ -1512,8 +1540,10 @@ def cv2_refusal(directory: str) -> str:
     raise AssertionError("train_packed: a carla source built with cv2 refused")
 
 
-def phase_train_packed(synthetic: dict) -> dict:
-    """The slice's training from a packed dataset (see the module)."""
+def phase_train_packed(synthetic: dict, packed: str) -> dict:
+    """The slice's training from a packed dataset (see the module), packed
+    into the directory ``packed``, which the train_contact phase reads
+    next."""
     from tpuseg_torch.data.class_stats import resolve_auto_class_weights
     from tpuseg_torch.data.sources import PackedSource, SyntheticSource
     from tpuseg_torch.main import main as train_main
@@ -1521,105 +1551,444 @@ def phase_train_packed(synthetic: dict) -> dict:
 
     h, w = MODEL_HW
     out = {"phase": "train_packed", "samples": PACKED_SAMPLES}
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as packed:
-        t0 = time.perf_counter()
-        if pack_dataset.main(["--kind", "synthetic", "--num_samples", str(PACKED_SAMPLES),
-                              "--out", packed, "--width", str(w), "--height", str(h)]) != 0:
-            raise AssertionError("train_packed: pack_dataset failed")
-        out["pack_s"] = time.perf_counter() - t0
-        src = PackedSource(packed, w, h)
-        out["packed_mb"] = (src.images.nbytes + src.masks.nbytes) / 2**20
-        out.update(check_packed(src, SyntheticSource(PACKED_SAMPLES, w, h), PACKED_SAMPLES))
-        out["cv2_refusal"] = cv2_refusal(packed)
+    t0 = time.perf_counter()
+    if pack_dataset.main(["--kind", "synthetic", "--num_samples", str(PACKED_SAMPLES),
+                          "--out", packed, "--width", str(w), "--height", str(h)]) != 0:
+        raise AssertionError("train_packed: pack_dataset failed")
+    out["pack_s"] = time.perf_counter() - t0
+    src = PackedSource(packed, w, h)
+    out["packed_mb"] = (src.images.nbytes + src.masks.nbytes) / 2**20
+    out.update(check_packed(src, SyntheticSource(PACKED_SAMPLES, w, h), PACKED_SAMPLES))
+    out["cv2_refusal"] = cv2_refusal(packed)
 
-        flags = [f"--data.sources={json.dumps([{'kind': 'packed', 'packed_dir': packed, 'weight': 1.0}])}",
-                 *PACKED_FLAGS]
-        kernels.reset_launches()
+    flags = [f"--data.sources={json.dumps([{'kind': 'packed', 'packed_dir': packed, 'weight': 1.0}])}",
+             *PACKED_FLAGS]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr = train_main(flags + ["--train.epochs=1", f"--train.steps_per_epoch={TRAIN_STEPS}",
+                             f"--data.val_split={VAL_SPLIT}", "--train.checkpoint_dir=",
+                             "--train.log_every=0"])
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
+    want = {"argmax_colorize": 0, "upsample2x_argmax": 0, "fused_upsample_concat_conv": 0,
+            "lovasz_histograms": TRAIN_STEPS, "lovasz_lookup": TRAIN_STEPS,
+            "fused_inverted_residual": 0}
+    if counts != want or tr.step != TRAIN_STEPS:
+        raise AssertionError(f"train_packed launches {counts} after {tr.step} steps, "
+                             f"want {want}")
+    got_cfg = (cfg.model.name, cfg.model.width_mult, cfg.train.batch_size,
+               (cfg.data.height, cfg.data.width), cfg.train.loss, cfg.data.heavy_augment,
+               type(tr.combined.sources[0]).__name__)
+    if got_cfg != ("mobilenetv2_unet", 1.0, BATCH, MODEL_HW, "ce+lovasz", True,
+                   "PackedSource"):
+        raise AssertionError(f"train_packed ran {got_cfg}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_packed losses {losses}")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not last < first:
+        raise AssertionError(f"train_packed: loss did not fall: first 10 {first}, "
+                             f"last 10 {last}")
+    if not math.isfinite(rec.get("val_miou", float("nan"))):
+        raise AssertionError(f"train_packed: no val mIoU in {rec}")
+    weights = resolve_auto_class_weights(tr.combined, cfg.model.num_classes, "auto")
+    if tr.class_weights != weights:
+        raise AssertionError(f"train_packed: the Trainer resolved {tr.class_weights}, "
+                             f"resolve_auto_class_weights gives {weights}")
+    out.update({"launches": counts, "steps": tr.step, "loss_first10": first,
+                "loss_last10": last, "losses_every10": losses[::10],
+                "val_miou": rec["val_miou"], "class_weights": list(weights),
+                "epoch_imgs_per_s": rec["imgs_per_sec"]})
+
+    # the stages, synchronized apart: the host batch (sampler, pinned
+    # buffers, one gather), the upload, the heavy augment eager and
+    # alone, the captured step
+    pipe, bs = tr.pipeline, cfg.train.batch_size
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    st = {"host_batch": [], "upload": [], "heavy_augment_eager": [], "captured_step": []}
+    for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
-        tr = train_main(flags + ["--train.epochs=1", f"--train.steps_per_epoch={TRAIN_STEPS}",
-                                 f"--data.val_split={VAL_SPLIT}", "--train.checkpoint_dir=",
-                                 "--train.log_every=0"])
+        host = pipe._assemble(pipe.sampler.sample(bs))
+        t1 = time.perf_counter()
+        dev = pipe._put(host)
         torch.cuda.synchronize()
-        out["wall_s"] = time.perf_counter() - t0
-        counts = dict(kernels.launches)
-        cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
-        want = {"argmax_colorize": 0, "upsample2x_argmax": 0, "fused_upsample_concat_conv": 0,
-                "lovasz_histograms": TRAIN_STEPS, "lovasz_lookup": TRAIN_STEPS,
-                "fused_inverted_residual": 0}
-        if counts != want or tr.step != TRAIN_STEPS:
-            raise AssertionError(f"train_packed launches {counts} after {tr.step} steps, "
-                                 f"want {want}")
-        got_cfg = (cfg.model.name, cfg.model.width_mult, cfg.train.batch_size,
-                   (cfg.data.height, cfg.data.width), cfg.train.loss, cfg.data.heavy_augment,
-                   type(tr.combined.sources[0]).__name__)
-        if got_cfg != ("mobilenetv2_unet", 1.0, BATCH, MODEL_HW, "ce+lovasz", True,
-                       "PackedSource"):
-            raise AssertionError(f"train_packed ran {got_cfg}")
-        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"train_packed losses {losses}")
-        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-        if not last < first:
-            raise AssertionError(f"train_packed: loss did not fall: first 10 {first}, "
-                                 f"last 10 {last}")
-        if not math.isfinite(rec.get("val_miou", float("nan"))):
-            raise AssertionError(f"train_packed: no val mIoU in {rec}")
-        weights = resolve_auto_class_weights(tr.combined, cfg.model.num_classes, "auto")
-        if tr.class_weights != weights:
-            raise AssertionError(f"train_packed: the Trainer resolved {tr.class_weights}, "
-                                 f"resolve_auto_class_weights gives {weights}")
-        out.update({"launches": counts, "steps": tr.step, "loss_first10": first,
-                    "loss_last10": last, "losses_every10": losses[::10],
-                    "val_miou": rec["val_miou"], "class_weights": list(weights),
-                    "epoch_imgs_per_s": rec["imgs_per_sec"]})
+        t2 = time.perf_counter()
+        tr.augment(*dev, g)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tr.train_step(*dev)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, dt in zip(st, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            st[k].append(dt * 1e3)
+    # steady steps: the loader thread feeding the captured step
+    lat = []
+    gen = pipe.train_batches(TIMED_STEPS)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(gen, None)
+        if batch is None:
+            break
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    steady = lat[3:]
+    del tr, gen
+    packed_t = {"stages_ms": {k: float(np.median(v[3:])) for k, v in st.items()},
+                "p50_step_ms": float(np.median(steady)) * 1e3,
+                "steady_imgs_per_s": bs * len(steady) / sum(steady)}
+    out["timing"] = {"packed": packed_t, "synthetic": {
+        k: synthetic[k] for k in ("stages_ms", "p50_step_ms", "steady_imgs_per_s")}}
 
-        # the stages, synchronized apart: the host batch (sampler, pinned
-        # buffers, one gather), the upload, the heavy augment eager and
-        # alone, the captured step
-        pipe, bs = tr.pipeline, cfg.train.batch_size
-        g = torch.Generator(device="cuda").manual_seed(SEED)
-        st = {"host_batch": [], "upload": [], "heavy_augment_eager": [], "captured_step": []}
-        for _ in range(TIMED_STEPS):
-            t0 = time.perf_counter()
-            host = pipe._assemble(pipe.sampler.sample(bs))
-            t1 = time.perf_counter()
-            dev = pipe._put(host)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            tr.augment(*dev, g)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            tr.train_step(*dev)
-            torch.cuda.synchronize()
-            t4 = time.perf_counter()
-            for k, dt in zip(st, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                st[k].append(dt * 1e3)
-        # steady steps: the loader thread feeding the captured step
-        lat = []
-        gen = pipe.train_batches(TIMED_STEPS)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(gen, None)
-            if batch is None:
-                break
-            tr.train_step(*batch)
-            torch.cuda.synchronize()
-            lat.append(time.perf_counter() - t0)
-        steady = lat[3:]
-        del tr, gen
-        packed_t = {"stages_ms": {k: float(np.median(v[3:])) for k, v in st.items()},
-                    "p50_step_ms": float(np.median(steady)) * 1e3,
-                    "steady_imgs_per_s": bs * len(steady) / sum(steady)}
-        out["timing"] = {"packed": packed_t, "synthetic": {
-            k: synthetic[k] for k in ("stages_ms", "p50_step_ms", "steady_imgs_per_s")}}
+    # captured against eager, deterministic algorithms, from one state
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["captured_vs_eager"] = train_ab(flags, "packed heavy", lovasz=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    emit(out)
+    return out
 
-        # captured against eager, deterministic algorithms, from one state
+
+# the train_contact phase: the training path as a user of the JAX package
+# runs it, from the packed set: a seeded torchvision encoder imported, QAT
+# from it, a fast student distilled from the QAT run, eval_miou on that
+# run's checkpoint, then QAT + distillation over two ranks
+CONTACT_STEPS, CONTACT_MESH_STEPS, CONTACT_EVAL_SAMPLES, CONTACT_SEED = 40, 3, 64, 7
+CONTACT_RUN = ["--train.epochs=1", f"--train.steps_per_epoch={CONTACT_STEPS}",
+               "--data.val_split=0", "--train.log_every=0"]
+KD_FLAGS = ["--train.distill_model=mobilenetv2_unet", "--train.distill_alpha=0.5",
+            "--train.distill_temperature=2"]
+
+
+def packed_source_flag(packed: str) -> str:
+    return f"--data.sources={json.dumps([{'kind': 'packed', 'packed_dir': packed, 'weight': 1.0}])}"
+
+
+def torchvision_encoder_sd(seed: int) -> dict:
+    """A full-width torchvision ``mobilenet_v2`` state_dict made from a seed:
+    the port's encoder has torchvision's module names and shapes
+    (``features.0-18.*``, BatchNorm statistics seeded away from 0/1), and
+    the ImageNet head's ``classifier.1.*`` goes beside it."""
+    enc = MobileNetV2Encoder()
+    init_weights(enc, make_generator(seed), random_bn=True)
+    sd = {k: v.clone() for k, v in enc.state_dict().items()}
+    sd["classifier.1.weight"] = torch.empty(1000, 1280).uniform_(
+        -0.05, 0.05, generator=make_generator(seed + 1))
+    sd["classifier.1.bias"] = torch.zeros(1000)
+    return sd
+
+
+def contact_import(tmp: Path) -> tuple:
+    """(1) The seeded encoder through ``tpuseg_torch.tools.import_pretrained``:
+    every encoder tensor equals its source, the decoder the port's seeded
+    init. Returns (the checkpoint directory, the phase's record)."""
+    from tpuseg_torch.infer.predictor import load_variables
+    from tpuseg_torch.tools import import_pretrained
+
+    sd = torchvision_encoder_sd(CONTACT_SEED)
+    pth, out = tmp / "mobilenet_v2.pth", tmp / "pretrained"
+    torch.save(sd, str(pth))
+    if import_pretrained.main(["--pth", str(pth), "--out", str(out)]) != 0:
+        raise AssertionError("train_contact: import_pretrained failed")
+    got = load_variables(str(out), lambda: None)
+    seeded = build_model(load_config([]).model).state_dict()
+    enc = [k for k in got if k.startswith("backbone.")
+           and not k.endswith("num_batches_tracked")]
+    dec = [k for k in got if not k.startswith("backbone.")]
+    want_enc = [k for k in sd if k.startswith("features.")
+                and not k.endswith("num_batches_tracked")]
+    row = {"source_tensors": len(sd), "encoder_tensors": len(enc), "decoder_tensors": len(dec),
+           "encoder_equal": all(torch.equal(got[k], sd[k[len("backbone."):]]) for k in enc),
+           "decoder_equal_seeded_init": all(torch.equal(got[k], seeded[k]) for k in dec)}
+    if len(enc) != len(want_enc) or not row["encoder_equal"] or \
+            not row["decoder_equal_seeded_init"]:
+        raise AssertionError(f"train_contact: import {row}")
+    return str(out), row
+
+
+def contact_run(argv, steps: int, what: str):
+    """``tpuseg_torch.main`` on ``argv``: the Trainer, its launches (both
+    Lovász kernels once a step, nothing else) and the first and last 5
+    losses (the loss must fall)."""
+    from tpuseg_torch.main import main as train_main
+
+    kernels.reset_launches()
+    tr = train_main(argv)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    want = {k: 0 for k in counts}
+    want.update(lovasz_histograms=steps, lovasz_lookup=steps)
+    losses = tr.step_losses
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if counts != want or tr.step != steps or not all(math.isfinite(v) for v in losses) \
+            or not last < first or not hasattr(tr.train_step, "replays"):
+        raise AssertionError(f"train_contact: {what} launches {counts} after {tr.step} "
+                             f"steps, losses first 5 {first}, last 5 {last}")
+    return tr, {"launches": counts, "steps": tr.step, "loss_first5": first,
+                "loss_last5": last, "losses_every10": losses[::10]}
+
+
+def fake_quant_card_vs_cpu(tr) -> dict:
+    """fake_quant_act on every QAT conv's input of a train-mode forward of
+    ``tr.model`` (one augmented batch) and fake_quant_kernel on its weight,
+    on the card and on the CPU: bit-equal."""
+    from tpuseg_torch.ops.fake_quant import fake_quant_act, fake_quant_kernel, qat_convs
+
+    convs = qat_convs(tr.model)
+    inputs = []
+    hooks = [conv.register_forward_pre_hook(lambda m, a: inputs.append(a[0].detach().clone()))
+             for _, conv in convs]
+    try:
+        x, _ = tr.augment(*draw_batches(tr, 1)[0], torch.Generator(device="cuda").manual_seed(SEED))
+        with graphs.eager(), torch.no_grad():
+            tr.model.train()(x.permute(0, 3, 1, 2))
+    finally:
+        for h in hooks:
+            h.remove()
+    act = [torch.equal(fake_quant_act(a).cpu(), fake_quant_act(a.cpu())) for a in inputs]
+    ker = [torch.equal(fake_quant_kernel(c.weight.detach()).cpu(),
+                       fake_quant_kernel(c.weight.detach().cpu())) for _, c in convs]
+    row = {"convs": len(convs), "activations_bit_equal": sum(act),
+           "kernels_bit_equal": sum(ker),
+           "elements": sum(a.numel() for a in inputs) + sum(c.weight.numel() for _, c in convs)}
+    if len(inputs) != len(convs) or not all(act) or not all(ker):
+        raise AssertionError(f"train_contact: fake-quant on the card against the CPU {row}")
+    return row
+
+
+def in_turns(configs: dict) -> dict:
+    """``train_timing`` of each configuration ({label: flags}) in turns:
+    in order, then in reverse (a, b, b, a)."""
+    rows = {label: [] for label in configs}
+    for label in [*configs, *reversed(configs)]:
+        rows[label].append(train_timing(configs[label], 1, False))
+    return rows
+
+
+def deterministic_ab(flags, label: str) -> dict:
+    """``train_ab`` (3 captured steps against 3 eager) under deterministic algorithms."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        return train_ab(flags, label, lovasz=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def teacher_in_step(tr) -> dict:
+    """The teacher logits of a captured distilled step (its images and
+    logits copied out inside the graph) against an eval forward of the
+    teacher on the same images: bit-equal."""
+    from tpuseg_torch.train.train_step import make_train_step
+
+    h, w = MODEL_HW
+    images = torch.empty(BATCH, h, w, 3, device="cuda")
+    logits = torch.empty(BATCH, h, w, CLASSES, device="cuda")
+
+    def tapped(x):
+        out = tr.teacher_fn(x)
+        images.copy_(x)
+        logits.copy_(out)
+        return out
+
+    step = make_train_step(tr.model, tr.optimizer, loss_fn=tr.loss_fn, augment_fn=tr.augment,
+                           generator=tr.aug_generator, teacher_fn=tapped)
+    for batch in draw_batches(tr, 2):
+        step(*batch)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = tr.teacher.eval()(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    row = {"replays": step.replays(), "bit_equal": bool(torch.equal(want, logits)),
+           "max_abs_diff": float((want - logits).abs().max())}
+    if row["replays"] != 1 or not row["bit_equal"]:
+        raise AssertionError(f"train_contact: in-step teacher logits {row}")
+    return row
+
+
+def contact_eval(ck: str) -> dict:
+    """(4) ``tpuseg_torch.tools.eval_miou`` on ``ck`` against the Trainer's
+    own evaluate of it on the same set (the same confusion matrix), and
+    its images/s."""
+    import io
+
+    from tpuseg_torch.tools import eval_miou
+    from tpuseg_torch.train.trainer import Trainer
+
+    n, bs = CONTACT_EVAL_SAMPLES, 32
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_miou.main(["--kind", "synthetic", "--samples", str(n), "--batch", str(bs),
+                             "--checkpoint", ck])
+    wall = time.perf_counter() - t0
+    got = json.loads(buf.getvalue().strip().splitlines()[-1])
+    src = json.dumps([{"kind": "synthetic", "num_samples": n, "weight": 1.0}])
+    tr = Trainer(load_config([f"--data.sources={src}", "--data.val_split=1.0",
+                              f"--train.batch_size={bs}", f"--train.init_checkpoint={ck}",
+                              "--train.checkpoint_dir="]))
+    rec = tr.evaluate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = tr.evaluate()
+    torch.cuda.synchronize()
+    second = time.perf_counter() - t0
+    want_iou = [None if v is None else round(v, 4) for v in rec["val_iou_per_class"]]
+    row = {"eval_miou": got, "trainer": {k: rec[k] for k in ("val_miou", "val_pixel_acc",
+                                                                "val_loss")},
+           "tool_wall_s": wall, "tool_images_per_s": n / wall,
+           "trainer_second_pass_images_per_s": n / second}
+    if rc != 0 or got["n_images"] != n or got["miou"] != rec["val_miou"] or \
+            got["pixel_acc"] != rec["val_pixel_acc"] or got["iou_per_class"] != want_iou or \
+            again["val_miou"] != rec["val_miou"]:
+        raise AssertionError(f"train_contact: eval_miou against the Trainer {row}")
+    return row
+
+
+def contact_rank(device, flags, n_convs: int) -> dict:
+    """One rank of the train_contact phase's mesh run: records the first
+    ``n_convs`` activation scales (this rank's absmax and the scale used)."""
+    import hashlib
+
+    from tpuseg_torch.main import main as train_main
+    from tpuseg_torch.ops import fake_quant
+
+    seen = []
+    act_scale = fake_quant.act_scale
+
+    def recorded(xf, mesh=None):
+        scale = act_scale(xf, mesh)
+        if len(seen) < n_convs:
+            seen.append((xf.detach().abs().amax().item(), scale.item(), mesh is not None))
+        return scale
+
+    fake_quant.act_scale = recorded
+    kernels.reset_launches()
+    tr = train_main(flags)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for v in tr.model.state_dict().values():
+        digest.update(v.cpu().numpy().tobytes())
+    return {"rank": tr.mesh.rank, "backend": tr.mesh.backend, "scales": seen,
+            "losses": tr.step_losses, "steps": tr.step, "digest": digest.hexdigest(),
+            "launches": {k: v for k, v in kernels.launches.items() if v},
+            "teacher": tr.teacher is not None, "captured": hasattr(tr.train_step, "replays")}
+
+
+def contact_ranks(flags, n_convs: int) -> dict:
+    """(5) QAT + distillation over two ranks sharing the card (gloo): each
+    QAT conv's scale on both ranks equals the scale of a one-process run
+    over the global batch (the max of the ranks' absmaxes: a max is exact),
+    and the parameters are bit-equal across ranks."""
+    from tpuseg_torch.core.mesh import launch_local
+    from tpuseg_torch.ops.fake_quant import INV_LEVELS
+
+    t0 = time.perf_counter()
+    ranks = launch_local(contact_rank, MESH_RANKS, device="cuda", timeout_s=600,
+                         args=(flags, n_convs))
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    equal, local_differ = 0, 0
+    for (l0, s0, m0), (l1, s1, m1) in zip(r0["scales"], r1["scales"]):
+        one = (torch.clamp(torch.tensor(max(l0, l1), device="cuda"), min=1e-8)
+               * INV_LEVELS).item()
+        equal += int(s0 == s1 == one and m0 and m1)
+        local_differ += int(l0 != l1)
+    want = {"lovasz_histograms": CONTACT_MESH_STEPS, "lovasz_lookup": CONTACT_MESH_STEPS}
+    row = {"route": mesh_route(MESH_RANKS)[0], "wall_s": wall,
+           "scales_recorded": [len(r["scales"]) for r in ranks],
+           "scales_equal_one_process": equal, "convs_whose_rank_absmax_differ": local_differ,
+           "params_bit_equal_across_ranks": r0["digest"] == r1["digest"],
+           "losses": r0["losses"], "launches_per_rank": [r["launches"] for r in ranks]}
+    if (any(len(r["scales"]) != n_convs or r["launches"] != want or not r["teacher"]
+            or r["captured"] or r["steps"] != CONTACT_MESH_STEPS
+            or not all(math.isfinite(v) for v in r["losses"]) for r in ranks)
+            or equal != n_convs or local_differ == 0
+            or not row["params_bit_equal_across_ranks"] or r0["losses"] != r1["losses"]):
+        raise AssertionError(f"train_contact: two ranks {row}")
+    return row
+
+
+def phase_train_contact(packed: str) -> dict:
+    """The rest of the training path (see the module): (1) a seeded
+    torchvision encoder imported, (2) QAT from it, (3) an FPN student
+    distilled from the QAT run, (4) eval_miou of the QAT run, (5) QAT +
+    distillation over two ranks."""
+    from tpuseg_torch.ops.fake_quant import qat_convs
+
+    src = packed_source_flag(packed)
+    out = {"phase": "train_contact", "config": {
+        "model": "mobilenetv2_unet", "student": "mobilenetv2_fpn", "classes": CLASSES,
+        "hw": list(MODEL_HW), "batch": BATCH, "loss": "lovasz", "data": "packed",
+        "tf32": False}}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        pre, out["import"] = contact_import(Path(tmp))
+        ck = str(Path(tmp) / "qat")
+
+        # (2) QAT from the imported encoder
+        qat = [src, f"--train.init_checkpoint={pre}", "--train.qat=true", "--train.loss=lovasz"]
+        tr, row = contact_run(qat + CONTACT_RUN + [f"--train.checkpoint_dir={ck}"],
+                              CONTACT_STEPS, "qat")
+        n_convs = len(qat_convs(tr.model))
+        plain = {k: v.shape for k, v in build_model(tr.cfg.model).state_dict().items()}
+        row.update(qat_convs=n_convs, state_dict_as_without_qat=plain == {
+            k: v.shape for k, v in tr.model.state_dict().items()},
+            checkpoint=sorted(p.name for p in Path(ck).glob("step_*.pt")),
+            fake_quant_card_vs_cpu=fake_quant_card_vs_cpu(tr))
+        del tr
+        if not row["state_dict_as_without_qat"] or row["checkpoint"] != [
+                f"step_{CONTACT_STEPS}.pt"] or n_convs != 61:
+            raise AssertionError(f"train_contact: qat {row}")
+        row["captured_vs_eager"] = deterministic_ab(qat, "qat")
+        # QAT trains the materialized decoder: the plain step both with the
+        # default subpixel decoder and with the materialized one
+        plain_flags = [f for f in qat if f != "--train.qat=true"]
+        row["timing"] = in_turns({"plain": plain_flags,
+                                  "plain_materialized": plain_flags
+                                  + ["--model.up_subpixel=false"], "qat": qat})
+        out["qat"] = row
+
+        # (3) a fast student distilled from the QAT run
+        student = [src, "--model.name=mobilenetv2_fpn", "--train.loss=lovasz"]
+        kd = student + [f"--train.distill_checkpoint={ck}", *KD_FLAGS]
+        tr, row = contact_run(kd + CONTACT_RUN + ["--train.checkpoint_dir="], CONTACT_STEPS,
+                              "distill")
+        if tr.teacher is None or tr.teacher.training or type(tr.teacher).__name__ != \
+                "MobileNetV2UNet":
+            raise AssertionError("train_contact: the distilled run has no frozen teacher")
         torch.use_deterministic_algorithms(True, warn_only=True)
         torch.backends.cudnn.deterministic = True
         try:
-            out["captured_vs_eager"] = train_ab(flags, "packed heavy", lovasz=True)
+            row["teacher_in_step"] = teacher_in_step(tr)
         finally:
             torch.use_deterministic_algorithms(False)
             torch.backends.cudnn.deterministic = False
+        h, w = MODEL_HW
+        ins = copies(lambda i: (torch.randn(BATCH, h, w, 3, device="cuda"),),
+                     BATCH * h * w * 3 * 4)
+        row["teacher_forward_ms"] = device_ms(tr.teacher_fn, ins)
+        del tr, ins
+        row["captured_vs_eager"] = deterministic_ab(kd, "distill")
+        row["timing"] = in_turns({"student": student, "distilled": kd})
+        step_ms = float(np.median([r["device_step_ms"] for r in row["timing"]["distilled"]]))
+        row["teacher_share_of_device_step"] = row["teacher_forward_ms"] / step_ms
+        out["distill"] = row
+
+        # (4) eval_miou on the QAT run's checkpoint
+        out["eval_miou"] = contact_eval(ck)
+
+        # (5) QAT + distillation over two ranks
+        mesh = [f"--mesh.data={MESH_RANKS}", *qat, f"--train.distill_checkpoint={ck}",
+                *KD_FLAGS, "--train.epochs=1", f"--train.steps_per_epoch={CONTACT_MESH_STEPS}",
+                "--data.val_split=0", "--train.checkpoint_dir=", "--train.log_every=0"]
+        out["ranks"] = contact_ranks(mesh, n_convs)
+    out["launches"] = {k: out["qat"]["launches"][k] + out["distill"]["launches"][k]
+                       for k in out["qat"]["launches"]}
+    out["mesh_launches_per_rank"] = out["ranks"]["launches_per_rank"]
     emit(out)
     return out
 
@@ -2697,12 +3066,15 @@ def main() -> int:
         phase_http(pth, frames)
         phase_graphs(pth, frames)
     train = phase_train(perf)
-    packed = phase_train_packed(train)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as packed_dir:
+        packed = phase_train_packed(train, packed_dir)
+        contact = phase_train_contact(packed_dir)
     bf16 = phase_bf16(perf, train)
     mesh = phase_mesh()
     train_counts = {k: train["launches"][k] + packed["launches"][k]
                     + sum(r["launches"].get(k, 0) for r in mesh["train"])
-                    + bf16["path_launches"][k]
+                    + bf16["path_launches"][k] + contact["launches"][k]
+                    + sum(r.get(k, 0) for r in contact["mesh_launches_per_rank"])
                     for k in train["launches"]}
     # the serving paths: the serve phase's batches, the video phase's and
     # the bf16 phase's
@@ -2749,6 +3121,9 @@ def main() -> int:
         bf16["kernels"]["fused_upsample_concat_conv"]["library_bf16_ms"]
     for k in ("lovasz_histograms", "lovasz_lookup"):
         extra[k]["bf16"] = "unchanged: the loss promotes the logits to fp32 first"
+        extra[k]["train_contact_launches"] = {
+            "qat": contact["qat"]["launches"][k], "distill": contact["distill"]["launches"][k],
+            "qat_distill_per_rank": [r[k] for r in contact["mesh_launches_per_rank"]]}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": perf[k]["max_abs_err"],

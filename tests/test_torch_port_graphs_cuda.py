@@ -47,6 +47,36 @@ def test_replays_equal_eager_calls_and_count_launches(card):
     assert len(step.entries) == 2
 
 
+def test_a_capture_survives_garbage_graphs_of_earlier_captures(card):
+    """A graph that only a reference cycle holds (a dropped Trainer's step)
+    is collected before the next capture, not inside it, where destroying
+    it would invalidate that capture. The warm-up call leaves such a cycle;
+    the captured call collects garbage, as an automatic collection that
+    falls inside the capture would."""
+    import gc
+
+    class Holder:
+        pass
+
+    calls = []
+
+    def fn(x):
+        if not calls:
+            holder = Holder()
+            holder.me = holder
+            holder.step = graphs.Captured(lambda y: y * 2.0, "garbage")
+            holder.step(torch.ones(8, device=x.device))
+        else:
+            gc.collect()
+        calls.append(1)
+        return x + 1.0
+
+    step = graphs.Captured(fn, "after_garbage")
+    x = torch.zeros(8, device=card)
+    step(x)
+    assert torch.equal(step(x), x + 1.0) and step.replays() == 1
+
+
 def test_registered_generator_draws_as_eager(card):
     def fn(x, gen):
         return x + torch.rand(x.shape, generator=gen, device=x.device)

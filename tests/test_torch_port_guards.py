@@ -49,7 +49,9 @@ def test_package_imports_without_jax_tpuseg_or_cv2():
     assert len(walked) >= 15
     for name in ("ops.morphology", "ops.native_post", "infer.postprocess", "infer.video",
                  "inference", "tools.serve", "ops.native_loader", "data.class_stats",
-                 "data.visualize", "tools.pack_dataset", "tools.class_stats", "ops._native"):
+                 "data.visualize", "tools.pack_dataset", "tools.class_stats", "ops._native",
+                 "core.torch_import", "tools.import_pretrained", "tools.eval_miou",
+                 "ops.fake_quant", "train.distill"):
         assert "tpuseg_torch." + name in walked
 
 

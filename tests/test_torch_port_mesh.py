@@ -29,6 +29,13 @@ ranks' results.
   over ``create_mesh(data=2)``, at tests/test_torch_port_train.py's
   settings and tolerances (the materialized decoder and f64 head of
   ROADMAP.md C3); the parameters bit-equal across the ranks.
+- QAT and distillation together: 2 f64 steps of a UNet (base_filters 4)
+  with every conv+BatchNorm conv fake-quantized and a UNet teacher
+  (alpha 0.5, T 2, CE with ignore_index 255) at world 2 against JAX's
+  ``make_train_step`` over ``create_mesh(data=2)`` with the "qat" markers
+  and the teacher: the activation ranges and the KD mean are the global
+  batch's in both (losses, parameters and statistics at rtol 1e-6, the
+  parameters also at atol 1e-8).
 - A 2-step world-2 Trainer through ``tpuseg_torch.main`` against the JAX
   Trainer with ``--mesh.data=2`` (the same records at the same steps, as
   tests/test_torch_port_trainer.py compares one device) and against the
@@ -49,6 +56,7 @@ import pytest
 import torch
 
 from tests import torch_port_mesh_ranks as ranks
+from tests.test_torch_port_distill import BF as KD_BF, HW as KD_HW, _flax_unet_vars
 from tests.test_torch_port_train import LR, WIDTH, _FlaxUNetF64Head, _batches, _variables
 from tests.test_torch_port_trainer import JAX_TINY, SOURCES8, _jax_trainer
 from tpuseg.core.mesh import batch_sharding as jax_batch_sharding
@@ -143,6 +151,22 @@ def _trajectory_inputs():
     return variables, batches, state
 
 
+@functools.lru_cache(maxsize=None)
+def _qat_distill_inputs():
+    """Student and teacher flax variables, their port state dicts (f64), and
+    2 global batches of 4 with ignored pixels."""
+    student, teacher = _flax_unet_vars(11), _flax_unet_vars(12)
+    rng = np.random.RandomState(13)
+    batches = []
+    for _ in range(2):
+        y = rng.randint(0, 10, (4, *KD_HW))
+        y[:, :3, :5] = 255
+        batches.append((rng.rand(4, *KD_HW, 3), y))
+    port = lambda v: {k: t.numpy() for k, t in state_dict_from_flax(
+        v, dtype=torch.float64).items()}
+    return student, teacher, batches, port(student), port(teacher)
+
+
 @pytest.fixture(scope="module")
 def groups(tmp_path_factory):
     """The two rank groups, started at once, one after the other, on a
@@ -158,7 +182,8 @@ def groups(tmp_path_factory):
           "batchnorm": _bn_inputs(),
           "clip": _clip_inputs(),
           "trainer": (argv, ck),
-          "bf16_trainer": (argv,)}
+          "bf16_trainer": (argv,),
+          "qat_distill": (*_qat_distill_inputs()[3:], _qat_distill_inputs()[2], KD_BF, LR)}
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     w4 = {"sharded_lovasz": (2, 2, *_lovasz_inputs()), "spatial": _spatial_inputs(),
           "losses": (*_loss_inputs(), WEIGHTS, 2, 2)}
@@ -251,6 +276,43 @@ def test_world2_f64_trajectory_matches_jax_mesh_step(groups, jax_trajectories, l
         else:
             np.testing.assert_allclose(got[k], w.numpy(), rtol=1e-6, atol=1e-8, err_msg=k)
     assert n_stats > 100 and got["backbone.features.0.1.num_batches_tracked"] == len(want_losses)
+
+
+def test_world2_f64_qat_distill_step_matches_jax_mesh_step(groups):
+    from tpuseg.models.unet import UNet as FlaxUNet
+    from tpuseg.ops.fake_quant import build_qat_markers
+    from tpuseg.train.distill import make_distill_loss, make_teacher_fn
+
+    student, teacher, batches, _, _ = _qat_distill_inputs()
+    jax.config.update("jax_enable_x64", True)
+    try:
+        mesh = jax_create_mesh(data=2)
+        fm = FlaxUNet(output_channels=10, base_filters=KD_BF, dtype=jnp.float64)
+        cast = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), t)
+        loss = make_distill_loss(jax_make_loss_fn("ce", ignore_index=255), 0.5, 2.0, 255)
+        step = jax_make_train_step(mesh=mesh, donate=False, loss_fn=loss,
+                                   extra_collections={"qat": build_qat_markers(
+                                       student["params"])},
+                                   teacher_fn=make_teacher_fn(fm, cast(teacher)))
+        state = TrainState.create(apply_fn=fm.apply, params=cast(student["params"]),
+                                  batch_stats=cast(student["batch_stats"]),
+                                  tx=optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8))
+        state = jax.device_put(state, jax_replicated_sharding(mesh))
+        want_losses = []
+        for x, y in batches:
+            state, metrics = step(state, jnp.asarray(x), jnp.asarray(y))
+            want_losses.append(float(metrics["loss"]))
+        want = state_dict_from_flax({"params": state.params,
+                                     "batch_stats": state.batch_stats}, dtype=torch.float64)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    (losses0, got, digest0), (losses1, _, digest1) = _ranks(groups, "qat_distill")
+    assert digest0 == digest1 and losses0 == losses1
+    np.testing.assert_allclose(losses0, want_losses, rtol=1e-6)
+    for k, w in want.items():
+        if not k.endswith("num_batches_tracked"):
+            tol = dict(rtol=1e-6) if "running" in k else dict(rtol=1e-6, atol=1e-8)
+            np.testing.assert_allclose(got[k], w.numpy(), err_msg=k, **tol)
 
 
 # -- the Trainer at world 2 -------------------------------------------------------

@@ -99,8 +99,6 @@ def test_without_a_card_it_raises_unless_asked_for_the_cpu(monkeypatch, tmp_path
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--train.qat=true", "A11"),
-    ("--train.distill_checkpoint=x", "A11"),
     ("--mesh.spatial=2", "A16"),
 ])
 def test_unported_options_raise(flag, item):

@@ -258,3 +258,32 @@ def sharded_lovasz_card(device, logits, targets):
         mesh, False, None, lovasz_histograms, lovasz_lookup)
     return (float(value), coef.cpu().numpy(), grad.cpu().numpy(), rows,
             {k: v for k, v in kernels.launches.items() if v})
+
+
+def qat_distill(device, state: dict, teacher_state: dict, batches, base_filters: int,
+                lr: float):
+    """f64 train steps of a UNet over a world-2 data mesh with QAT on and a
+    UNet teacher distilled at alpha 0.5, T 2 (CE base, ignore_index 255):
+    (losses, final state_dict, digest)."""
+    from tpuseg_torch.configs import ModelConfig
+    from tpuseg_torch.models.blocks import set_mesh
+    from tpuseg_torch.models.registry import build_model
+    from tpuseg_torch.ops.fake_quant import set_qat
+    from tpuseg_torch.train.distill import make_distill_loss, make_teacher_fn
+    from tpuseg_torch.train.loss import make_loss_fn
+    from tpuseg_torch.train.optim import Optimizer
+    from tpuseg_torch.train.train_step import make_train_step
+
+    mesh = create_mesh(2, 1)
+    model, teacher = (build_model(ModelConfig(name="unet", base_filters=base_filters))
+                      .to(torch.float64) for _ in range(2))
+    for m, sd in ((model, state), (teacher, teacher_state)):
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    set_qat(set_mesh(model, mesh))
+    loss = make_distill_loss(make_loss_fn("ce", ignore_index=255, mesh=mesh), 0.5, 2.0,
+                             ignore_index=255, mesh=mesh)
+    step = make_train_step(model, Optimizer(model.parameters(), lr=lr), loss_fn=loss,
+                           mesh=mesh, teacher_fn=make_teacher_fn(teacher))
+    losses = [float(step(torch.from_numpy(x), torch.from_numpy(y))["loss"])
+              for x, y in batches]
+    return losses, {k: v.numpy() for k, v in model.state_dict().items()}, params_digest(model)

@@ -39,6 +39,11 @@ bounds the entries: past it, the least recently called key is dropped with
 its graph, and a later call at that key captures it again. Outputs a caller
 still holds from a dropped graph stay valid (they keep their blocks).
 
+Garbage: the collector runs before a capture and not during it. An
+earlier graph that only a reference cycle still held would otherwise be
+destroyed by a collection that happens to fall inside the capture, which
+CUDA refuses there, and the capture is lost.
+
 ``fn`` runs uncaptured, with no key and no static buffers, when its
 tensors lie on the CPU (nothing to capture there) or inside ``eager()``
 (the counterpart of ``jax.disable_jit()``). A failed capture raises; it
@@ -51,6 +56,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import threading
 from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 
@@ -79,6 +85,20 @@ def is_eager() -> bool:
 def _key(args: Sequence[Any]) -> Tuple:
     return tuple(("tensor", tuple(a.shape), a.dtype, a.device) if isinstance(a, torch.Tensor)
                  else ("static", a) for a in args)
+
+
+@contextlib.contextmanager
+def no_collection() -> Iterator[None]:
+    """Collect the garbage now, then keep the collector off until the block
+    ends (around a capture: see the module)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _close_generator_capture(generators: Sequence[torch.Generator], stream) -> None:
@@ -154,7 +174,8 @@ class Captured:
         try:
             for g in self.generators:
                 graph.register_generator_state(g)
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            with no_collection(), torch.cuda.graph(graph, stream=side,
+                                                   capture_error_mode="thread_local"):
                 static_out = self.fn(*static_args)
         except Exception as e:
             _close_generator_capture(self.generators, side)

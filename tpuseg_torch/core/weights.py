@@ -139,8 +139,8 @@ def state_dict_from_flax(variables: Mapping,
     the stem's own kernel, so it needs nothing here."""
     if "quant" in variables:
         raise NotImplementedError(
-            "int8 'quant' variables are not ported yet (ROADMAP.md, A11 + "
-            "A12: QAT, int8 export)"
+            "int8 'quant' variables are not ported yet (ROADMAP.md A12: int8 "
+            "calibration and serving)"
         )
     params, stats = variables["params"], variables["batch_stats"]
     if "unet" in params:                      # LightUNet
@@ -166,14 +166,15 @@ def state_dict_from_flax(variables: Mapping,
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in out.items()}
 
 
-def load_pth(path: str) -> Dict[str, torch.Tensor]:
-    """Load a reference ``.pth`` state_dict (any family) for the port.
+def drop_encoder_slices(raw: Mapping[str, torch.Tensor],
+                        where: str = "state_dict") -> Dict[str, torch.Tensor]:
+    """``raw`` without the reference's duplicate encoder keys.
 
     The reference registers the encoder slices twice, as ``down1..down5``
     (``features[2:4]`` and so on; a slice of a Sequential keeps the feature
-    indices, so ``downK.N.*`` is ``backbone.features.N.*``). Those duplicate
-    keys are checked to equal their originals and dropped."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
+    indices, so ``downK.N.*`` is ``backbone.features.N.*``). Those keys are
+    checked to equal their originals and dropped (ValueError naming
+    ``where`` otherwise)."""
     out = {}
     for k, v in raw.items():
         m = re.fullmatch(r"down[1-5]\.(\d+\..+)", k)
@@ -183,6 +184,12 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
         orig = f"backbone.features.{m[1]}"
         if orig not in raw or not torch.equal(raw[orig], v):
             raise ValueError(
-                f"{path}: duplicate key {k!r} does not equal {orig!r}"
+                f"{where}: duplicate key {k!r} does not equal {orig!r}"
             )
     return out
+
+
+def load_pth(path: str) -> Dict[str, torch.Tensor]:
+    """Load a reference ``.pth`` state_dict (any family) for the port, its
+    duplicate encoder keys dropped (``drop_encoder_slices``)."""
+    return drop_encoder_slices(torch.load(path, map_location="cpu", weights_only=True), path)

@@ -48,7 +48,12 @@ Checkpoints: ``""`` gives a seeded init, a path ending in ``.pth`` is a
 state_dict (reference key names; flax's module names for FPN and DeepLab),
 and a training checkpoint of the port (a ``step_<N>.pt`` file, or a
 checkpoint directory, whose latest step is taken) serves its EMA weights
-when it has them, as the JAX package serves ``ema_params``.
+when it has them, as the JAX package serves ``ema_params``. The port does
+not read Orbax: a checkpoint directory of the JAX package is converted
+once, where JAX is, by ``tools/orbax_to_torch.py`` (and a torchvision
+encoder by ``python -m tpuseg_torch.tools.import_pretrained``). A
+checkpoint that carries an int8 ``quant`` tree raises
+``QuantCheckpointError`` (ROADMAP.md A12).
 
 ``mesh`` (``tpuseg_torch.core.mesh``, more than one rank): every rank calls
 the Predictor on the same frames, runs its rows of the batch (the
@@ -56,8 +61,8 @@ captured pass above) and all-gathers the class maps (and colours) over
 the data axis, so every rank returns the whole batch's, as the JAX
 Predictor's batch-sharded jit does. The weights are rank 0's.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP.md item:
-Orbax directories (A4), ``artifact`` (A12) and int8 ``quant`` (A11/A12).
+Not ported yet, raising NotImplementedError with its ROADMAP.md item:
+``artifact`` (A12).
 """
 
 from __future__ import annotations
@@ -110,6 +115,11 @@ def host_resize_linear(frames: np.ndarray, out_h: int, out_w: int) -> np.ndarray
     return out
 
 
+class QuantCheckpointError(ValueError):
+    """A checkpoint carries a calibrated int8 ``quant`` tree, which the port
+    neither serves nor trains from yet (ROADMAP.md A12)."""
+
+
 def load_variables(checkpoint: str, init_fn: Callable[[], StateDict]) -> StateDict:
     """Resolve a checkpoint path into the model's state_dict."""
     if not checkpoint:
@@ -126,8 +136,11 @@ def load_variables(checkpoint: str, init_fn: Callable[[], StateDict]) -> StateDi
         mgr = CheckpointManager(checkpoint)
         if mgr.latest_step() is not None:
             return _training_weights(mgr.restore())
-        raise _not_ported("loading an Orbax checkpoint directory (it needs "
-                          "orbax, hence JAX)", "A4, Orbax loading")
+        raise NotImplementedError(
+            f"{checkpoint!r} holds no checkpoint of the port. The port does not read "
+            "Orbax checkpoint directories (that needs orbax, hence JAX): convert one "
+            f"where JAX is, with python tools/orbax_to_torch.py --checkpoint {checkpoint} "
+            "--out <dir>, and pass <dir>")
     raise FileNotFoundError(f"checkpoint {checkpoint!r} not found")
 
 
@@ -135,6 +148,10 @@ def _training_weights(payload: dict) -> StateDict:
     """A port training checkpoint's model state_dict, with its EMA
     parameters in place of the raw ones when it has them (they are what the
     Trainer evaluated and selected the best checkpoint by)."""
+    if payload.get("quant"):
+        raise QuantCheckpointError(
+            "the checkpoint carries a calibrated int8 'quant' collection, which the "
+            "port does not serve or train from yet (ROADMAP.md A12)")
     weights = dict(payload["model"])
     weights.update(payload.get("ema") or {})
     return weights

@@ -105,9 +105,13 @@ def _train(cfg, device):
         cfg.data.sources = default_sources(cfg)
     if cfg.model.name == "mobilenetv2_unet" and not cfg.train.init_checkpoint \
             and not cfg.train.resume:
+        # the reference starts from a torchvision ImageNet-pretrained encoder
         print("WARNING: training MobileNetV2UNet from RANDOM init. The reference "
-              "uses an ImageNet-pretrained encoder; pass "
-              "--train.init_checkpoint=<reference .pth> to start from one.")
+              "uses an ImageNet-pretrained encoder; to match it, convert a "
+              "torchvision checkpoint once:\n"
+              "    python -m tpuseg_torch.tools.import_pretrained --pth mobilenet_v2.pth "
+              "--out pretrained/mnv2\n"
+              "then pass --train.init_checkpoint=pretrained/mnv2")
     trainer = Trainer(cfg, device=device)
     trainer.train()
     return trainer

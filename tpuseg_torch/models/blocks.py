@@ -35,7 +35,13 @@ the running statistics where they are.
 ``upconcat_conv`` keeps the JAX routing of an up block's first conv
 (``ConvBNAct.upconcat_impl`` there): ``"subpixel"`` in train and eval;
 ``"pallas"`` -> the CUDA kernel ``fused_upsample_concat_conv`` in eval only;
-the materialized upsample+concat otherwise.
+the materialized upsample+concat otherwise, and in training under QAT
+(the deployed graph's shape).
+
+QAT (``tpuseg_torch.ops.fake_quant.set_qat``): a marked ``Conv2d`` in
+train mode convolves the fake-quantized input and weight in the compute
+dtype and adds the bias, as the JAX ``ConvBNAct._qat_conv``; its
+activation range spans the mesh that ``set_mesh`` gave it.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpuseg_torch.core.mesh import all_reduce_
+from tpuseg_torch.ops.fake_quant import fake_quant_act, fake_quant_kernel
 from tpuseg_torch.ops.resize import upsample2x_bilinear
 
 BN_EPS = 1e-5
@@ -180,10 +187,11 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
 
 def set_mesh(model: nn.Module, mesh) -> nn.Module:
-    """Give every BatchNorm2d of ``model`` the mesh whose data axis its
-    train-mode statistics span (None: this rank's batch alone)."""
+    """Give every BatchNorm2d and Conv2d of ``model`` the mesh whose data
+    axis its train-mode statistics (a QAT conv's activation range) span
+    (None: this rank's batch alone)."""
     for m in model.modules():
-        if isinstance(m, BatchNorm2d):
+        if isinstance(m, (BatchNorm2d, Conv2d)):
             m.mesh = mesh
     return model
 
@@ -207,12 +215,21 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` when it is set, as
     flax's ``nn.Conv(dtype=...)``: the input, the weight and the bias cast
     to it, the bias added to the conv's rounded result. None: the
-    parameters' dtype (``nn.Conv2d``'s own forward)."""
+    parameters' dtype (``nn.Conv2d``'s own forward). With ``qat`` set, in
+    train mode, the input and the weight are fake-quantized first."""
 
     compute_dtype: Optional[torch.dtype] = None
+    qat = False
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.qat and self.training:
+            x, w = fake_quant_act(x, self.mesh), fake_quant_kernel(self.weight)
+            if dt is not None:
+                x, w = x.to(dt), w.to(dt)
+            y = self._conv_forward(x, w, None)
+            return y if self.bias is None else y + self.bias.to(y.dtype).view(-1, 1, 1)
         if dt is None:
             return super().forward(x)
         y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
@@ -244,10 +261,12 @@ def upconcat_conv(conv: Conv2d, skip: torch.Tensor, x: torch.Tensor,
 
     impl "subpixel": exact composite-kernel rewrite (train and eval);
     "pallas": the fused CUDA kernel in eval (its plain version for CPU
-    tensors); otherwise, or "pallas" in training, the materialized
-    upsample + concat + conv. The first two give fp32, rounded to the
-    conv's compute dtype when it has one (``blocks.py:182, 212`` of the
-    JAX package)."""
+    tensors); otherwise, or "pallas" in training, or any impl in training
+    under QAT, the materialized upsample + concat + conv. The first two
+    give fp32, rounded to the conv's compute dtype when it has one
+    (``blocks.py:182, 203, 212`` of the JAX package)."""
+    if conv.qat and training:
+        impl = "materialize"
     if impl == "subpixel" or (impl == "pallas" and not training):
         from tpuseg_torch.ops.kernels import fused_upsample_concat_conv
         from tpuseg_torch.ops.subpixel import up_concat_conv_subpixel

@@ -15,6 +15,13 @@ inside the gradient comes before its cast).
 Images enter the steps channels-last ([B, H, W, 3], the JAX layout); the
 model sees an NCHW view of them, and the loss the logits' NHWC view.
 
+Distillation (``teacher_fn``, ``train/distill.py``): the frozen teacher's
+forward runs inside the step, on the augmented images (this rank's rows
+over a mesh), before the student's forward and outside autograd; the loss
+is then called as ``(logits, labels, teacher_logits)``. On the card it is
+part of the captured graph. QAT needs nothing here: the marked convs
+quantize in train mode (``ops/fake_quant.py``).
+
 Over a mesh (``mesh``, more than one rank; ``tpuseg_torch.core.mesh``) a
 step is one global step, as the JAX package's data-sharded jit is: every
 rank is given the same global batch, augments all of it with the same
@@ -98,12 +105,14 @@ def _uncaptured(mesh, name: str) -> bool:
 def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Callable] = None,
                    augment_fn: Optional[Callable] = None,
                    generator: Optional[torch.Generator] = None, remat: bool = False,
-                   debug_nans: bool = False, mesh=None, grads_bf16: bool = False) -> Callable:
+                   debug_nans: bool = False, mesh=None, grads_bf16: bool = False,
+                   teacher_fn: Optional[Callable] = None) -> Callable:
     """One uncaptured step, ``(images, labels) -> loss`` (a detached device
     scalar). With ``augment_fn`` it takes uint8 images and masks and
     augments them first, drawing from ``generator``. Over ``mesh`` it
     takes the global batch and keeps this rank's rows after the augment;
-    ``loss_fn`` must be built for the same mesh."""
+    ``loss_fn`` must be built for the same mesh. With ``teacher_fn`` the
+    loss takes the teacher's logits as a third argument."""
     mesh = _active(mesh)
     if mesh is not None and loss_fn is None:
         raise ValueError("a step over a mesh needs a loss_fn built for it (make_loss_fn(mesh=))")
@@ -117,8 +126,11 @@ def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Cal
         if mesh is not None:
             rows = batch_slice(mesh, images.shape[0])[0]
             images, labels = images[rows], labels[rows]
+        teacher_logits = None if teacher_fn is None else teacher_fn(images)
         model.train()
-        loss = compute_loss(forward(images), labels)
+        logits = forward(images)
+        loss = (compute_loss(logits, labels) if teacher_logits is None
+                else compute_loss(logits, labels, teacher_logits))
         optimizer.zero_grad()
         loss.backward()
         if mesh is not None:
@@ -137,7 +149,8 @@ def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Cal
 def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Callable] = None,
                     augment_fn: Optional[Callable] = None,
                     generator: Optional[torch.Generator] = None, remat: bool = False,
-                    debug_nans: bool = False, mesh=None, grads_bf16: bool = False) -> Callable:
+                    debug_nans: bool = False, mesh=None, grads_bf16: bool = False,
+                    teacher_fn: Optional[Callable] = None) -> Callable:
     """The step: ``(images f32 [B,H,W,3], labels [B,H,W]) -> {"loss"}``; or,
     with ``augment_fn``, ``(images u8, masks u8) -> {"loss"}`` with the
     augmentation (drawing from ``generator``) fused in front. ``loss_fn``
@@ -147,9 +160,10 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Ca
     mode does) and raises FloatingPointError on a loss or gradient that is
     not finite. The loss comes back as a device tensor, overwritten by the
     next call: reading it is the caller's choice of when to sync. Over
-    ``mesh`` the step is the global one (see the module), uncaptured."""
+    ``mesh`` the step is the global one (see the module), uncaptured.
+    ``teacher_fn`` (``distill.make_teacher_fn``) distills from a teacher."""
     body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans,
-                          mesh, grads_bf16)
+                          mesh, grads_bf16, teacher_fn)
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {"loss": body(images, labels)}
@@ -164,13 +178,14 @@ def make_train_multi_step(k: int, model: nn.Module, optimizer: Optimizer,
                           augment_fn: Optional[Callable] = None,
                           generator: Optional[torch.Generator] = None, remat: bool = False,
                           debug_nans: bool = False, mesh=None,
-                          grads_bf16: bool = False) -> Callable:
+                          grads_bf16: bool = False,
+                          teacher_fn: Optional[Callable] = None) -> Callable:
     """K steps per dispatch, the port of ``make_train_multi_step``:
     ``(images [K, B, ...], labels [K, B, ...]) -> {"loss": [K]}``, the same
     arithmetic as K calls of the single step, captured as one graph (over
     ``mesh``, K global steps, uncaptured)."""
     body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans,
-                          mesh, grads_bf16)
+                          mesh, grads_bf16, teacher_fn)
 
     def multi_step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         if images.shape[0] != k or labels.shape[0] != k:
@@ -188,6 +203,19 @@ def _generators(generator: Optional[torch.Generator]):
     if generator is None or generator.device.type != "cuda":
         return ()
     return (generator,)
+
+
+def sum_eval_outputs(eval_step: Callable, batches, device) -> Optional[Dict[str, torch.Tensor]]:
+    """The eval step's outputs summed over ``batches`` (``(images, masks,
+    n_valid)`` each, as ``InputPipeline.eval_batches`` yields them); None
+    when there is no batch."""
+    tot = None
+    for images, masks, n_valid in batches:
+        out = eval_step(images, masks, torch.tensor(n_valid, device=device))
+        # a replay's outputs are overwritten by the next: sum into copies
+        tot = ({k: v.clone() for k, v in out.items()} if tot is None
+               else {k: tot[k] + out[k] for k in out})
+    return tot
 
 
 def make_eval_step(model: nn.Module, num_classes: int, normalize: Optional[Tuple] = None,

@@ -18,6 +18,12 @@ per epoch are rounded up to whole groups of K, as in the JAX package.
 loss or gradient that is not finite; ``profile_dir`` traces ``train()``
 with ``torch.profiler``.
 
+QAT (``train.qat``) marks the model's conv+BatchNorm convs
+(``ops/fake_quant.py``), which then train fake-quantized; distillation
+(``train.distill_checkpoint``) builds a frozen teacher
+(``_build_distillation``, ``train/distill.py``) whose forward runs inside
+the step.
+
 Checkpoints are the port's own format (``tpuseg_torch.core.checkpoint``):
 model, optimizer, EMA (its own key), step, epoch and sampler state under
 ``<checkpoint_dir>/step_<N>.pt``, ``keep_checkpoints`` of them, plus the
@@ -61,13 +67,14 @@ from tpuseg_torch.data.combined import CombinedDataset
 from tpuseg_torch.data.pipeline import InputPipeline
 from tpuseg_torch.data.sources import build_source
 from tpuseg_torch.models.blocks import set_mesh
+from tpuseg_torch.ops.fake_quant import set_qat
 from tpuseg_torch.models.registry import build_model, validate_input_size
 from tpuseg_torch.train.loss import make_loss_fn
 from tpuseg_torch.train.metrics import (iou_from_confusion, mean_iou,
                                         pixel_accuracy_from_confusion)
 from tpuseg_torch.train.optim import build_optimizer
 from tpuseg_torch.train.train_step import (make_eval_step, make_train_multi_step,
-                                           make_train_step)
+                                           make_train_step, sum_eval_outputs)
 
 log = logging.getLogger(__name__)
 
@@ -79,11 +86,7 @@ def _loss_list(loss: torch.Tensor) -> List[float]:
 
 def _unported_options(cfg: Config) -> List[tuple]:
     """(is set, what, ROADMAP item) for each option the port cannot run yet."""
-    t = cfg.train
     return [
-        (t.qat, "qat", "A11, QAT"),
-        (bool(t.distill_checkpoint), "distillation (distill_checkpoint)",
-         "A11, distillation"),
         (cfg.mesh.spatial > 1, f"the spatially-sharded train step (mesh spatial="
          f"{cfg.mesh.spatial})", "A16, spatial train step"),
     ]
@@ -150,9 +153,22 @@ class Trainer:
         self.aug_generator = torch.Generator(device=self.device).manual_seed(
             cfg.data.seed + 1)
         self.steps_per_dispatch = max(1, t.steps_per_dispatch)
-        step_kw = dict(loss_fn=self._build_loss(), augment_fn=self.augment,
+        if t.qat:
+            # every conv+BatchNorm conv trains fake-quantized (int8 grids,
+            # straight-through gradients); the state_dict is unchanged
+            log.info("qat: %d convs fake-quantized", set_qat(self.model))
+        # the step's loss and teacher forward (None: plain CE, no teacher)
+        self.loss_fn, self.teacher, self.teacher_fn = self._build_loss(), None, None
+        if t.distill_checkpoint:
+            if t.distill_alpha <= 0.0:
+                # alpha=0 means KD off: no teacher is built or run
+                log.warning("distill_alpha=0 — ignoring distill_checkpoint %r",
+                            t.distill_checkpoint)
+            else:
+                self.loss_fn, self.teacher_fn = self._build_distillation(self.loss_fn)
+        step_kw = dict(loss_fn=self.loss_fn, augment_fn=self.augment,
                        generator=self.aug_generator, remat=t.remat, debug_nans=t.debug_nans,
-                       mesh=self.mesh, grads_bf16=t.grads_bf16)
+                       mesh=self.mesh, grads_bf16=t.grads_bf16, teacher_fn=self.teacher_fn)
         if self.steps_per_dispatch > 1:
             self.train_step = make_train_multi_step(self.steps_per_dispatch, self.model,
                                                     self.optimizer, **step_kw)
@@ -249,9 +265,61 @@ class Trainer:
             ignore_index=t.ignore_index if t.ignore_index >= 0 else None,
             lovasz_bins=t.lovasz_bins, mesh=self.mesh)
 
+    def _build_distillation(self, loss_fn):
+        """The frozen teacher and the combined loss (``train.distill_*``),
+        as the JAX Trainer builds them: the teacher is the model config with
+        ``distill_model``/``distill_base_filters``/``distill_width_mult``
+        in place and ``use_pallas`` off, loaded from ``distill_checkpoint``
+        (any checkpoint ``load_variables`` reads; its EMA weights when it
+        has them), checked at build time. Returns (loss, teacher_fn)."""
+        import dataclasses
+
+        from tpuseg_torch.infer.predictor import QuantCheckpointError, load_variables
+        from tpuseg_torch.train.distill import make_distill_loss, make_teacher_fn
+        from tpuseg_torch.train.loss import cross_entropy_loss
+
+        t, m = self.cfg.train, self.cfg.model
+        t_cfg = dataclasses.replace(
+            m, name=t.distill_model or m.name,
+            base_filters=t.distill_base_filters or m.base_filters,
+            width_mult=t.distill_width_mult or m.width_mult,
+            # the fused decoder kernel is eval-only and single-card
+            use_pallas=False)
+        teacher = build_model(t_cfg)
+        try:
+            weights = load_variables(t.distill_checkpoint, teacher.state_dict)
+        except QuantCheckpointError as e:
+            raise ValueError(
+                f"distill_checkpoint {t.distill_checkpoint!r} carries a calibrated int8 "
+                "'quant' collection — distill from the fp32 training checkpoint "
+                "instead") from e
+        # fail at build time, not at the first step
+        try:
+            teacher.load_state_dict(weights, strict=True)
+            with torch.no_grad():
+                probe = teacher.eval()(torch.zeros(1, 3, self.cfg.data.height,
+                                                   self.cfg.data.width))
+        except (RuntimeError, KeyError, ValueError) as e:
+            raise ValueError(
+                f"distill_checkpoint {t.distill_checkpoint!r} does not match teacher model "
+                f"{t_cfg.name!r} (base_filters={t.distill_base_filters}, width_mult="
+                f"{t.distill_width_mult}): {e}") from e
+        if probe.shape[1] != m.num_classes:
+            raise ValueError(f"teacher predicts {probe.shape[1]} classes; student has "
+                             f"{m.num_classes}")
+        self.teacher = teacher.to(self.device, memory_format=torch.channels_last)
+        log.info("distillation: teacher=%s from %s, alpha=%.2f, T=%.1f", t_cfg.name,
+                 t.distill_checkpoint, t.distill_alpha, t.distill_temperature)
+        return (make_distill_loss(loss_fn or cross_entropy_loss, t.distill_alpha,
+                                  t.distill_temperature, ignore_index=t.ignore_index,
+                                  mesh=self.mesh),
+                make_teacher_fn(self.teacher))
+
     def _load_init_checkpoint(self, path: str) -> None:
-        """Weights (and BN statistics) from a reference ``.pth``; optimizer
-        and sampler untouched. An Orbax directory raises (A4)."""
+        """Weights (and BN statistics) from any checkpoint ``load_variables``
+        reads (a reference ``.pth``, a checkpoint directory of the port, as
+        ``tpuseg_torch.tools.import_pretrained`` and ``tools/orbax_to_torch.py``
+        write them); optimizer and sampler untouched."""
         from tpuseg_torch.infer.predictor import load_variables
 
         self.model.load_state_dict(load_variables(path, self.model.state_dict))
@@ -522,14 +590,8 @@ class Trainer:
         """Full pass over the val split: loss, pixel acc, per-class IoU, mIoU,
         on the EMA weights when EMA is on (eval and best tracking select
         the weights that are served)."""
-        tot = None
         with self._eval_weights():
-            for images, masks, n_valid in self.pipeline.eval_batches():
-                n = torch.tensor(n_valid, device=self.device)
-                out = self.eval_step(images, masks, n)
-                # a replay's outputs are overwritten by the next: sum into copies
-                tot = ({k: v.clone() for k, v in out.items()} if tot is None
-                       else {k: tot[k] + out[k] for k in out})
+            tot = sum_eval_outputs(self.eval_step, self.pipeline.eval_batches(), self.device)
         if tot is None or float(tot["n"]) == 0:
             return {}
         cm = tot["confusion"].cpu().numpy()
