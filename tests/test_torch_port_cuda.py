@@ -610,3 +610,34 @@ def test_sharded_lovasz_on_two_ranks_sharing_the_card(card):
         assert np.array_equal(c, coef.cpu().numpy())
         assert abs(v - float(value)) <= 1e-4
         assert np.abs(g - grad[rows].cpu().numpy()).max() <= 1e-6
+
+
+# the flagship's int8 conv shapes at batch 8, 256x128 (the dense 3x3 up1 at
+# K = 12,096, a stride-2 stem, a depthwise 3x3 at stride 2, a 1x1, a
+# dilated ASPP rate) and a batch of one at the deepest 4x8 grid (M = 32)
+INT8_CONV_CASES = {  # (B, Cin, H, W, Cout, k, stride, padding, dilation, groups)
+    "up1": (8, 1344, 8, 16, 256, 3, 1, 1, 1, 1),
+    "stem": (8, 3, 128, 256, 32, 3, 2, 1, 1, 1),
+    "depthwise_s2": (8, 96, 64, 128, 96, 3, 2, 1, 1, 96),
+    "project_1x1": (8, 960, 4, 8, 320, 1, 1, 0, 1, 1),
+    "aspp_rate6": (1, 1280, 4, 8, 128, 3, 1, 6, 6, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(INT8_CONV_CASES))
+def test_int8_conv_on_the_card_bit_equal_to_the_plain_version(card, case):
+    """Each card route of ``ops/int8_conv.py`` gives the plain float64
+    version's int32 sums bit for bit, on channels_last operands at extreme
+    values (every product near 127^2)."""
+    from tpuseg_torch.ops.int8_conv import int8_conv, int8_conv_plain
+
+    b, cin, h, w, cout, k, stride, pad, dil, groups = INT8_CONV_CASES[case]
+    rng = np.random.RandomState(0)
+    xq = torch.from_numpy(rng.choice([-127, -1, 126, 127], (b, cin, h, w)).astype(np.int8))
+    kq = torch.from_numpy(rng.choice([-127, 127, 125], (cout, cin // groups, k, k))
+                          .astype(np.int8))
+    want = int8_conv_plain(xq, kq, stride, pad, dil, groups)
+    x = xq.cuda().contiguous(memory_format=torch.channels_last)
+    got = int8_conv(x, kq.cuda(), stride, pad, dil, groups)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), want)

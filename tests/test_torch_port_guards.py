@@ -51,7 +51,10 @@ def test_package_imports_without_jax_tpuseg_or_cv2():
                  "inference", "tools.serve", "ops.native_loader", "data.class_stats",
                  "data.visualize", "tools.pack_dataset", "tools.class_stats", "ops._native",
                  "core.torch_import", "tools.import_pretrained", "tools.eval_miou",
-                 "ops.fake_quant", "train.distill"):
+                 "ops.fake_quant", "train.distill", "ops.int8_conv", "export.quantize",
+                 "export.int8_full", "export.onnx_proto", "export.onnx_run",
+                 "export.onnx_export", "export.torch_export", "convert",
+                 "tools.eval_quantized"):
         assert "tpuseg_torch." + name in walked
 
 
@@ -105,9 +108,12 @@ def test_config_file_drives_both_packages(tmp_path):
     dict(artifact="model.stablehlo"),
 ], ids=["artifact"])
 def test_unported_predictor_options_raise(kwargs):
+    """``artifact`` is served now (tests/test_torch_port_export.py): a
+    missing artifact file raises as a missing checkpoint does, and no
+    Predictor option raises NotImplementedError any more."""
     from tpuseg_torch.infer.predictor import Predictor
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         Predictor(ModelConfig(), device="cpu", **kwargs)
 
 
@@ -133,7 +139,7 @@ def test_mesh_predictor_guards_match_jax():
 
 
 def test_unported_checkpoints_models_and_paths_raise(tmp_path):
-    from tpuseg_torch.core.weights import state_dict_from_flax
+    from tpuseg_torch.core.weights import flax_variables, quant_from_flax, state_dict_from_flax
     from tpuseg_torch.infer.predictor import Predictor
     from tpuseg_torch.models.registry import build_model
 
@@ -141,8 +147,6 @@ def test_unported_checkpoints_models_and_paths_raise(tmp_path):
         Predictor(ModelConfig(), checkpoint=str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError):
         Predictor(ModelConfig(), checkpoint=str(tmp_path / "missing"), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        state_dict_from_flax({"params": {}, "batch_stats": {}, "quant": {}})
     for name in ("mobilenetv2_unet", "unet", "light_unet", "mobilenetv2_fpn",
                  "mobilenetv2_deeplab"):
         # bf16 compute builds every family, its parameters fp32
@@ -150,10 +154,14 @@ def test_unported_checkpoints_models_and_paths_raise(tmp_path):
         assert {p.dtype for p in model.parameters()} == {torch.float32}
     with pytest.raises(ValueError, match="compute_dtype"):
         build_model(ModelConfig(compute_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="artifact"):
-        Predictor(ModelConfig(name="unet"), artifact="model.stablehlo", device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        state_dict_from_flax({"params": {"inc": {}}, "batch_stats": {}, "quant": {}})
+    with pytest.raises(FileNotFoundError):
+        Predictor(ModelConfig(name="unet"), artifact=str(tmp_path / "model.pt2"), device="cpu")
+    # a quant tree beside the weights no longer raises: state_dict_from_flax
+    # maps the weights as without it, quant_from_flax maps the quant tree
+    unet = build_model(ModelConfig(name="unet", base_filters=4))
+    v = flax_variables(unet, unet.state_dict())
+    assert set(state_dict_from_flax({**v, "quant": {}})) == set(unet.state_dict())
+    assert quant_from_flax({**v, "quant": {}}) == {}
     with pytest.raises(KeyError, match="Unknown model"):
         build_model(ModelConfig(name="nope"))
     with pytest.raises(ValueError, match="multiples of 32"):

@@ -7,8 +7,10 @@ converter writes the port's checkpoint directory at the same step; the
 port's eval forward of it equals flax's ``model.apply(train=False)`` within
 rtol 1e-5 (atol 1e-6; float32 convs summed in another order); the EMA
 parameters are taken when the checkpoint has them, as the JAX Predictor
-serves them; a ``quant`` tree is refused naming ROADMAP.md A12; and the
-port, given the Orbax directory itself, raises naming the converter.
+serves them; a calibrated int8 ``quant`` tree (the JAX ``calibrate``)
+is converted onto the port's conv names, equal to ``quant_from_flax``, and
+served in int8; and the port, given the Orbax directory itself, raises
+naming the converter.
 """
 
 import importlib.util
@@ -24,7 +26,8 @@ import torch
 from tpuseg.core.checkpoint import CheckpointManager
 from tpuseg.models.unet import UNet as FlaxUNet
 from tpuseg_torch.configs import ModelConfig
-from tpuseg_torch.core.weights import state_dict_from_flax
+from tpuseg.export.int8_full import calibrate as jax_calibrate
+from tpuseg_torch.core.weights import quant_from_flax, state_dict_from_flax
 from tpuseg_torch.infer.predictor import Predictor, load_variables
 from tpuseg_torch.models.registry import build_model
 
@@ -65,11 +68,13 @@ def save_orbax(directory, step: int, state: dict) -> str:
 def orbax_dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("orbax")
     v, ema = flax_variables(0), flax_variables(1)
+    quant = jax_calibrate(FlaxUNet(output_channels=10, base_filters=BF), v,
+                          [jnp.asarray(np.random.RandomState(3).randn(2, *HW, 3), jnp.float32)])
     return {"plain": (save_orbax(root / "plain", 7, v), v),
             "ema": (save_orbax(root / "ema", 3, {**v, "ema_params": ema["params"]}),
                     {"params": ema["params"], "batch_stats": v["batch_stats"]}),
-            "quant": (save_orbax(root / "quant", 1, {**v, "quant": {"act_scale": np.ones(1)}}),
-                      None)}
+            "quant": (save_orbax(root / "quant", 1, {**v, "quant": quant}),
+                      {**v, "quant": quant})}
 
 
 @pytest.mark.parametrize("case", ["plain", "ema"])
@@ -97,9 +102,21 @@ def test_converted_forward_equals_flax(orbax_dirs, tmp_path, capsys, case):
 
 
 def test_quant_tree_refused_and_orbax_dir_names_the_converter(orbax_dirs, tmp_path):
+    """A calibrated int8 checkpoint is no longer refused: its quant tree is
+    converted beside the weights and the port serves it in int8."""
     convert = jax_tool("orbax_to_torch").convert
-    with pytest.raises(ValueError, match="'quant' collection.*ROADMAP.md A12"):
-        convert(orbax_dirs["quant"][0], str(tmp_path / "q"))
+    src, want_vars = orbax_dirs["quant"]
+    out = tmp_path / "q"
+    assert convert(src, str(out)) == 1
+    payload = torch.load(out / "step_1.pt", weights_only=True)
+    want = quant_from_flax(want_vars)
+    assert len(want) == 15 and set(payload["quant"]) == set(want)
+    for name, q in want.items():
+        assert set(payload["quant"][name]) == set(q)
+        assert all(torch.equal(payload["quant"][name][k], t) for k, t in q.items())
+    p = Predictor(ModelConfig(name="unet", base_filters=BF), input_hw=HW, checkpoint=str(out),
+                  device="cpu")
+    assert p.int8
     with pytest.raises(NotImplementedError, match="python tools/orbax_to_torch.py "
                                                   "--checkpoint .* --out"):
         Predictor(ModelConfig(name="unet", base_filters=BF), input_hw=HW,

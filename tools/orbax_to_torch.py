@@ -12,13 +12,16 @@ is:
 It restores a step (default: the latest) as host arrays
 (``CheckpointManager.restore_host``), takes the EMA parameters in place of
 the raw ones when the checkpoint has them (what the JAX Predictor serves),
-refuses a calibrated int8 ``quant`` tree (the port does not serve int8
-yet, ROADMAP.md A12), maps the tree with the port's
-``state_dict_from_flax`` and writes ``<out>/step_<N>.pt`` holding
-``{"model": state_dict, "step": N}``, at the same step. The port loads that
-directory wherever it takes a checkpoint: ``--train.init_checkpoint``,
-``--infer.checkpoint``, ``--train.distill_checkpoint`` and ``python -m
-tpuseg_torch.tools.eval_miou --checkpoint``.
+maps the tree with the port's ``state_dict_from_flax`` and writes
+``<out>/step_<N>.pt`` holding ``{"model": state_dict, "step": N}``, at the
+same step. A calibrated int8 checkpoint (the JAX ``save_quantized``, as
+``convert.py --export.format=quantized`` writes it) keeps its ``quant``
+tree, mapped onto the port's conv names by ``quant_from_flax``, as
+``"quant"`` beside the weights. The port loads that directory wherever it
+takes a checkpoint: ``--train.init_checkpoint``, ``--infer.checkpoint``
+(in int8 where it has ``quant``), ``--train.distill_checkpoint`` and
+``python -m tpuseg_torch.tools.eval_miou --checkpoint`` (these two refuse
+``quant``, as the JAX ones do).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ def convert(checkpoint: str, out: str, step: Optional[int] = None) -> int:
     the step."""
     from tpuseg.core.checkpoint import CheckpointManager
     from tpuseg_torch.core.checkpoint import CheckpointManager as PortCheckpointManager
-    from tpuseg_torch.core.weights import state_dict_from_flax
+    from tpuseg_torch.core.weights import quant_from_flax, state_dict_from_flax
 
     with CheckpointManager(checkpoint) as mgr:
         step = mgr.latest_step() if step is None else step
@@ -45,15 +48,12 @@ def convert(checkpoint: str, out: str, step: Optional[int] = None) -> int:
             raise FileNotFoundError(f"no Orbax checkpoint in {checkpoint!r}")
         restored = mgr.restore_host(step)
     state = restored["state"] if "state" in restored else restored
-    if state.get("quant"):
-        raise ValueError(
-            f"{checkpoint!r} carries a calibrated int8 'quant' collection, which the "
-            "port does not serve yet (ROADMAP.md A12); convert the fp32 training "
-            "checkpoint instead")
     params = state["ema_params"] if state.get("ema_params") else state["params"]
-    model = state_dict_from_flax({"params": params,
-                                  "batch_stats": state.get("batch_stats", {})})
-    PortCheckpointManager(out, max_to_keep=1).save(step, {"model": model, "step": int(step)})
+    variables = {"params": params, "batch_stats": state.get("batch_stats", {})}
+    payload = {"model": state_dict_from_flax(variables), "step": int(step)}
+    if state.get("quant"):
+        payload["quant"] = quant_from_flax({**variables, "quant": state["quant"]})
+    PortCheckpointManager(out, max_to_keep=1).save(step, payload)
     return int(step)
 
 

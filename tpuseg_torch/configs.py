@@ -171,7 +171,7 @@ class InferConfig:
 
 @dataclass
 class ExportConfig:
-    """Export/quantization (not ported yet)."""
+    """Export/quantization."""
 
     checkpoint: str = ""
     output: str = "exported/model.stablehlo"

@@ -11,14 +11,21 @@ checkpoint, take flax's module names (``lat5.0``, ``aspp.aspp_rate2.0``).
 ``tpuseg/core/torch_import.py``, written afresh: HWIO kernels become OIHW
 (depthwise ``[3,3,1,C]`` -> ``[C,1,3,3]``), BatchNorm ``scale``/``bias``
 become ``weight``/``bias`` and ``mean``/``var`` become
-``running_mean``/``running_var``.
+``running_mean``/``running_var``. ``quant_from_flax`` maps a calibrated
+int8 ``quant`` tree onto the port's conv names by the same mapping.
+
+The mapping runs backwards too: ``flax_names`` reads it off
+``state_dict_from_flax`` applied to a tree whose leaves are tags, and
+``flax_variables`` uses it, on ``flax_template(model)`` (the flax tree
+structure of a port model), to give a port state_dict the JAX package's
+tree and scope names (the ONNX exporter's initializer names).
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -136,12 +143,8 @@ def state_dict_from_flax(variables: Mapping,
     The family is read from the tree: ``inc`` is a UNet (a LightUNet nests
     it under ``unet``), ``up4`` the MobileNetV2UNet, and anything else
     (FPN, DeepLab) maps flax's module names one to one. ``stem_s2d`` uses
-    the stem's own kernel, so it needs nothing here."""
-    if "quant" in variables:
-        raise NotImplementedError(
-            "int8 'quant' variables are not ported yet (ROADMAP.md A12: int8 "
-            "calibration and serving)"
-        )
+    the stem's own kernel, so it needs nothing here. A ``quant`` tree
+    beside them is not part of the state_dict: ``quant_from_flax`` maps it."""
     params, stats = variables["params"], variables["batch_stats"]
     if "unet" in params:                      # LightUNet
         params, stats = params["unet"], stats["unet"]
@@ -164,6 +167,139 @@ def state_dict_from_flax(variables: Mapping,
                 if k != "backbone":
                     _by_name(out, k, params[k], stats.get(k, {}))
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in out.items()}
+
+
+FlaxPath = Tuple[str, ...]
+
+
+def _tagged(tree: Mapping, tags: list, path: FlaxPath = ()) -> dict:
+    """``tree`` with each leaf replaced by a tag array: its index in
+    ``tags`` (which records the leaf's path) plus one, 4-D for a kernel
+    (``_oihw`` transposes it) and 1-D otherwise."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out[k] = _tagged(v, tags, path + (k,))
+        else:
+            tags.append(path + (k,))
+            out[k] = np.full((1, 1, 1, 1) if k == "kernel" else (1,), float(len(tags)))
+    return out
+
+
+def flax_names(variables: Mapping) -> Dict[str, Tuple[str, FlaxPath]]:
+    """port state_dict key -> (collection, path) of the leaf of the flax
+    ``{"params", "batch_stats"}`` tree ``variables`` that
+    ``state_dict_from_flax`` maps there (``num_batches_tracked``, which no
+    leaf holds, left out). Only the tree's structure is read."""
+    tags: list = []
+    tagged = {c: _tagged(variables.get(c, {}), tags, (c,)) for c in ("params", "batch_stats")}
+    out = {}
+    for key, value in state_dict_from_flax(tagged, dtype=torch.float64).items():
+        if not key.endswith(".num_batches_tracked"):
+            path = tags[int(value.reshape(-1)[0]) - 1]
+            out[key] = (path[0], path[1:])
+    return out
+
+
+def quant_from_flax(variables: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's calibrated int8 ``quant`` tree (a node of
+    ``kernel_q`` HWIO int8, ``kernel_scale``, ``act_scale`` and maybe
+    ``bias`` per ``ConvBNAct``) -> the port's, keyed by conv module name
+    (the node's ``conv`` kernel's key in ``state_dict_from_flax``), with
+    ``kernel_q`` OIHW and the scales as they are."""
+    by_path = {path[:-2]: key[: -len(".weight")]
+               for key, (col, path) in flax_names(variables).items()
+               if col == "params" and path[-2:] == ("conv", "kernel")}
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def walk(node: Mapping, path: FlaxPath) -> None:
+        if "kernel_q" in node:
+            if path not in by_path:
+                raise KeyError(f"quant node {'/'.join(path)} has no conv in the params")
+            q = {"kernel_q": _oihw(node["kernel_q"]),
+                 "kernel_scale": _t(np.asarray(node["kernel_scale"], np.float32)),
+                 "act_scale": _t(np.asarray(node["act_scale"], np.float32).reshape(()))}
+            if "bias" in node:
+                q["bias"] = _t(np.asarray(node["bias"], np.float32))
+            out[by_path[path]] = q
+            return
+        for k, v in node.items():
+            if not isinstance(v, Mapping):
+                raise ValueError(f"quant leaf {'/'.join(path + (k,))} outside a conv's node")
+            walk(v, path + (k,))
+
+    walk(variables["quant"], ())
+    return out
+
+
+def flax_template(model: nn.Module) -> Dict[str, Any]:
+    """The flax ``{"params", "batch_stats"}`` tree structure of the port's
+    ``model`` (any registry family): the module names and leaves the JAX
+    package's model of the same configuration has, every leaf None."""
+    from tpuseg_torch.models.blocks import (Conv2d, ConvBNAct, DoubleConv, Down, InConv,
+                                            OutConv, Up)
+    from tpuseg_torch.models.mobilenetv2 import InvertedResidual, MobileNetV2Encoder
+    from tpuseg_torch.models.unet import LightUNet
+
+    def conv(m):
+        return {"kernel": None, **({"bias": None} if m.bias is not None else {})}, {}
+
+    def convbn(m):
+        return ({"conv": conv(m)[0], "bn": {"scale": None, "bias": None}},
+                {"bn": {"mean": None, "var": None}})
+
+    def node(named):
+        params, stats = {}, {}
+        for name, (p, s) in named:
+            params[name] = p
+            if s:
+                stats[name] = s
+        return params, stats
+
+    def walk(m):
+        if isinstance(m, Conv2d):
+            return conv(m)
+        if isinstance(m, ConvBNAct):
+            return convbn(m[0])
+        if isinstance(m, DoubleConv):
+            return node([("conv1", convbn(m.conv[0])), ("conv2", convbn(m.conv[3]))])
+        if isinstance(m, InConv):
+            return walk(m.conv)
+        if isinstance(m, (Down, Up)):
+            return node([("conv", walk(m.mpconv[1] if isinstance(m, Down) else m.conv))])
+        if isinstance(m, OutConv):
+            return node([("conv1", convbn(m.conv[0])), ("conv2", conv(m.conv[3]))])
+        if isinstance(m, InvertedResidual):
+            layers = list(m.conv)
+            named = [("expand", convbn(layers[0][0]))] if len(layers) == 4 else []
+            return node(named + [("depthwise", convbn(layers[-3][0])),
+                                 ("project", convbn(layers[-2]))])
+        if isinstance(m, MobileNetV2Encoder):
+            return node([(f"features_{i}", walk(f)) for i, f in enumerate(m.features)])
+        return node([(name, walk(c)) for name, c in m.named_children()])
+
+    params, stats = walk(model)
+    if isinstance(model, LightUNet):
+        params, stats = {"unet": params}, {"unet": stats}
+    return {"params": params, "batch_stats": stats}
+
+
+def flax_variables(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """``state_dict`` of the port's ``model`` as the JAX package's flax tree
+    of numpy arrays (HWIO kernels): ``state_dict_from_flax``'s inverse."""
+    names = flax_names(flax_template(model))
+    if set(names) != {k for k in state_dict if not k.endswith(".num_batches_tracked")}:
+        raise KeyError(f"the state_dict's keys are not {type(model).__name__}'s")
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, (col, path) in names.items():
+        value = state_dict[key].detach().cpu().numpy()
+        if path[-1] == "kernel":
+            value = np.ascontiguousarray(value.transpose(2, 3, 1, 0))
+        node = out[col]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+    return out
 
 
 def drop_encoder_slices(raw: Mapping[str, torch.Tensor],

@@ -52,17 +52,25 @@ when it has them, as the JAX package serves ``ema_params``. The port does
 not read Orbax: a checkpoint directory of the JAX package is converted
 once, where JAX is, by ``tools/orbax_to_torch.py`` (and a torchvision
 encoder by ``python -m tpuseg_torch.tools.import_pretrained``). A
-checkpoint that carries an int8 ``quant`` tree raises
-``QuantCheckpointError`` (ROADMAP.md A12).
+checkpoint that carries a calibrated int8 ``quant`` collection
+(``export/int8_full.py::save_quantized``, ``python -m tpuseg_torch.convert
+--export.format=quantized``, or a JAX one converted) is served in int8:
+``self.int8`` is set and every calibrated conv runs int8 x int8 -> int32
+inside the captured pass, as the JAX Predictor binds ``quant``.
+
+``artifact``: a ``torch.export`` program written by
+``export/torch_export.py::export_model`` (``python -m tpuseg_torch.convert
+--export.format=stablehlo``) is served in place of the live model, as the
+JAX Predictor serves its StableHLO artifact: the checkpoint is ignored
+(the weights are in the program), the program takes the resized and
+normalized NHWC images and its logits go to the same head
+(``argmax_colorize`` with colorize on). A mesh raises.
 
 ``mesh`` (``tpuseg_torch.core.mesh``, more than one rank): every rank calls
 the Predictor on the same frames, runs its rows of the batch (the
 captured pass above) and all-gathers the class maps (and colours) over
 the data axis, so every rank returns the whole batch's, as the JAX
 Predictor's batch-sharded jit does. The weights are rank 0's.
-
-Not ported yet, raising NotImplementedError with its ROADMAP.md item:
-``artifact`` (A12).
 """
 
 from __future__ import annotations
@@ -89,10 +97,6 @@ from tpuseg_torch.ops.resize import (resize_bilinear, resize_linear_u8_host, res
 StateDict = Dict[str, torch.Tensor]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
-
-
 def unpack4_host(packed: np.ndarray) -> np.ndarray:
     """Inverse of the device-side fetch_pack4 nibble pack: [B, h, w/2]
     uint8 -> [B, h, w] class ids (high nibble = even column)."""
@@ -115,19 +119,19 @@ def host_resize_linear(frames: np.ndarray, out_h: int, out_w: int) -> np.ndarray
     return out
 
 
-class QuantCheckpointError(ValueError):
-    """A checkpoint carries a calibrated int8 ``quant`` tree, which the port
-    neither serves nor trains from yet (ROADMAP.md A12)."""
+Quant = Dict[str, Dict[str, torch.Tensor]]
 
 
-def load_variables(checkpoint: str, init_fn: Callable[[], StateDict]) -> StateDict:
-    """Resolve a checkpoint path into the model's state_dict."""
+def load_checkpoint(checkpoint: str, init_fn: Callable[[], StateDict]
+                    ) -> Tuple[StateDict, Optional[Quant]]:
+    """Resolve a checkpoint path into (the model's state_dict, its int8
+    ``quant`` collection or None)."""
     if not checkpoint:
-        return init_fn()
+        return init_fn(), None
     if checkpoint.endswith(".pth"):
         from tpuseg_torch.core.weights import load_pth
 
-        return load_pth(checkpoint)
+        return load_pth(checkpoint), None
     if checkpoint.endswith(".pt") and os.path.isfile(checkpoint):
         return _training_weights(torch.load(checkpoint, map_location="cpu", weights_only=True))
     if os.path.isdir(checkpoint):
@@ -144,17 +148,20 @@ def load_variables(checkpoint: str, init_fn: Callable[[], StateDict]) -> StateDi
     raise FileNotFoundError(f"checkpoint {checkpoint!r} not found")
 
 
-def _training_weights(payload: dict) -> StateDict:
-    """A port training checkpoint's model state_dict, with its EMA
-    parameters in place of the raw ones when it has them (they are what the
-    Trainer evaluated and selected the best checkpoint by)."""
-    if payload.get("quant"):
-        raise QuantCheckpointError(
-            "the checkpoint carries a calibrated int8 'quant' collection, which the "
-            "port does not serve or train from yet (ROADMAP.md A12)")
+def load_variables(checkpoint: str, init_fn: Callable[[], StateDict]) -> StateDict:
+    """The model's state_dict of a checkpoint path (its ``quant``, if any,
+    left out: what a Trainer's ``init_checkpoint`` takes, as the JAX one
+    takes ``params`` and ``batch_stats`` alone)."""
+    return load_checkpoint(checkpoint, init_fn)[0]
+
+
+def _training_weights(payload: dict) -> Tuple[StateDict, Optional[Quant]]:
+    """A port checkpoint's model state_dict, with its EMA parameters in
+    place of the raw ones when it has them (they are what the Trainer
+    evaluated and selected the best checkpoint by), and its ``quant``."""
     weights = dict(payload["model"])
     weights.update(payload.get("ema") or {})
-    return weights
+    return weights, payload.get("quant") or None
 
 
 class Predictor:
@@ -218,8 +225,6 @@ class Predictor:
                 "device_close runs the 5x5 morph-close at the device program's output "
                 "resolution; pass upscale_on_host=False so that is the frame resolution "
                 "(reference parity)")
-        if artifact:
-            raise _not_ported("artifact serving", "A12, export")
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.model = build_model(model_cfg)
@@ -238,10 +243,24 @@ class Predictor:
             IMAGENET_MEAN.tolist() if normalize_mean is None else normalize_mean)
         self.normalize_std = tuple(
             IMAGENET_STD.tolist() if normalize_std is None else normalize_std)
-        self.model.load_state_dict(
-            load_variables(checkpoint, self.model.state_dict))
-        self.model.to(self.device, memory_format=torch.channels_last).eval()
-        replicate(self.model, self.mesh)
+        self.artifact_call = None
+        quant = None
+        if artifact:
+            from tpuseg_torch.export.torch_export import load_exported
+
+            # the weights are the program's; the model only checked the size
+            self.artifact_call = load_exported(artifact, self.device)
+        else:
+            weights, quant = load_checkpoint(checkpoint, self.model.state_dict)
+            self.model.load_state_dict(weights)
+            self.model.to(self.device, memory_format=torch.channels_last).eval()
+            replicate(self.model, self.mesh)
+        # a calibrated int8 checkpoint: its convs run int8 x int8 -> int32
+        self.int8 = quant is not None
+        if self.int8:
+            from tpuseg_torch.export.int8_full import bind_quant
+
+            bind_quant(self.model, quant)
         # the device pass, one CUDA graph per input shape and out_hw
         self._device_forward = graphs.Captured(self._device_forward_eager, "serve_forward",
                                                max_keys=self.MAX_GRAPHS)
@@ -258,8 +277,11 @@ class Predictor:
         if tuple(frames.shape[1:3]) != (mh, mw):
             x = resize_bilinear(x, mh, mw, align_corners=False)
         x = normalize_images(x, self.normalize_mean, self.normalize_std)
-        # NHWC -> an NCHW view with channels_last strides (no copy)
-        logits = self.model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self.artifact_call is not None:
+            logits = self.artifact_call(x)
+        else:
+            # NHWC -> an NCHW view with channels_last strides (no copy)
+            logits = self.model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if self.colorize_on_device:
             classes, packed = argmax_colorize(logits.contiguous(), COLOR_MAP_BGR)
         else:

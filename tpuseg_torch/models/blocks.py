@@ -42,6 +42,15 @@ QAT (``tpuseg_torch.ops.fake_quant.set_qat``): a marked ``Conv2d`` in
 train mode convolves the fake-quantized input and weight in the compute
 dtype and adds the bias, as the JAX ``ConvBNAct._qat_conv``; its
 activation range spans the mesh that ``set_mesh`` gave it.
+
+Full int8 (``tpuseg_torch.export.int8_full.bind_quant``): a ``Conv2d``
+that carries calibrated ``int8`` data runs, in eval, as the JAX
+``ConvBNAct._quantized_conv``: the input quantized with the per-tensor
+activation scale, an exact int8 x int8 -> int32 conv
+(``ops/int8_conv.py``), the sums rescaled by ``act_scale * kernel_scale``
+(the product formed first), the bias added, the result in the compute
+dtype. Such a conv in an up block takes the materialized up-concat, as
+the JAX block does whenever ``quant`` is bound.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.core.mesh import all_reduce_
 from tpuseg_torch.ops.fake_quant import fake_quant_act, fake_quant_kernel
+from tpuseg_torch.ops.int8_conv import int8_conv, quantize_act
 from tpuseg_torch.ops.resize import upsample2x_bilinear
 
 BN_EPS = 1e-5
@@ -216,14 +226,26 @@ class Conv2d(nn.Conv2d):
     flax's ``nn.Conv(dtype=...)``: the input, the weight and the bias cast
     to it, the bias added to the conv's rounded result. None: the
     parameters' dtype (``nn.Conv2d``'s own forward). With ``qat`` set, in
-    train mode, the input and the weight are fake-quantized first."""
+    train mode, the input and the weight are fake-quantized first. With
+    ``int8`` set (``kernel_q``, ``act_scale``, ``scale`` = act_scale *
+    kernel_scale, optional ``bias``, on the weight's device), in eval, the
+    conv runs in int8 (see the module)."""
 
     compute_dtype: Optional[torch.dtype] = None
     qat = False
     mesh = None
+    int8: Optional[dict] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.int8 is not None and not self.training:
+            q = self.int8
+            acc = int8_conv(quantize_act(x, q["act_scale"]), q["kernel_q"], self.stride,
+                            self.padding, self.dilation, self.groups)
+            y = acc.to(torch.float32) * q["scale"].view(-1, 1, 1)
+            if "bias" in q:
+                y = y + q["bias"].view(-1, 1, 1)
+            return y.to(torch.float32 if dt is None else dt)
         if self.qat and self.training:
             x, w = fake_quant_act(x, self.mesh), fake_quant_kernel(self.weight)
             if dt is not None:
@@ -265,7 +287,7 @@ def upconcat_conv(conv: Conv2d, skip: torch.Tensor, x: torch.Tensor,
     under QAT, the materialized upsample + concat + conv. The first two
     give fp32, rounded to the conv's compute dtype when it has one
     (``blocks.py:182, 203, 212`` of the JAX package)."""
-    if conv.qat and training:
+    if (conv.qat and training) or conv.int8 is not None:
         impl = "materialize"
     if impl == "subpixel" or (impl == "pallas" and not training):
         from tpuseg_torch.ops.kernels import fused_upsample_concat_conv

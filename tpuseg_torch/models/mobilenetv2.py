@@ -79,6 +79,7 @@ class MobileNetV2Encoder(nn.Module):
 
     def __init__(self, width_mult: float = 1.0, stem_s2d: bool = False):
         super().__init__()
+        self.width_mult = width_mult
         c_stem = make_divisible(32 * width_mult)
         del stem_s2d        # the same conv either way (module docstring)
         feats: List[nn.Module] = [ConvBNAct(3, c_stem, 3, 2)]

@@ -11,11 +11,11 @@ The port's copy of ``tools/eval_miou.py``, with its flags and kinds:
 override with ``--img_dir``/``--mask_dir``, or ``--kind carla|seame|
 synthetic``); the directory kinds decode with cv2 (a host without it
 refuses them, naming the packed route). The checkpoint is anything
-``load_variables`` reads: a checkpoint directory or ``step_<N>.pt`` of the
+``load_checkpoint`` reads: a checkpoint directory or ``step_<N>.pt`` of the
 port (its EMA weights when it has them), a reference ``.pth``, or ``''`` for
 a seeded init; an Orbax directory of the JAX package is converted first with
 ``tools/orbax_to_torch.py``, and a checkpoint with an int8 ``quant`` tree is
-refused.
+refused, naming ``python -m tpuseg_torch.tools.eval_quantized``.
 
 It runs the code ``Trainer.evaluate`` runs: ``InputPipeline.eval_batches``
 (a zero-padded last batch), ``make_eval_step`` (the confusion matrix on the
@@ -99,7 +99,7 @@ def main(argv=None) -> int:
     from tpuseg_torch.data.combined import CombinedDataset
     from tpuseg_torch.data.pipeline import InputPipeline
     from tpuseg_torch.data.sources import build_source
-    from tpuseg_torch.infer.predictor import QuantCheckpointError, load_variables
+    from tpuseg_torch.infer.predictor import load_checkpoint
     from tpuseg_torch.main import device_for_platform
     from tpuseg_torch.models.registry import build_model
     from tpuseg_torch.train.metrics import (iou_from_confusion, mean_iou,
@@ -145,14 +145,13 @@ def main(argv=None) -> int:
 
     model = build_model(ModelConfig(name=args.model, num_classes=args.num_classes,
                                     base_filters=args.base_filters))
-    try:
-        weights = load_variables(args.checkpoint, model.state_dict)
-    except QuantCheckpointError:
+    weights, quant = load_checkpoint(args.checkpoint, model.state_dict)
+    if quant:
         # the eval step binds the fp32 weights only: the score would be theirs,
         # not the int8 artifact's
         print("ERROR: checkpoint carries a calibrated 'quant' collection — evaluate int8 "
-              "accuracy with the JAX package's tools/eval_quantized.py (the port's waits "
-              "for ROADMAP.md A12)", file=sys.stderr)
+              "accuracy with python -m tpuseg_torch.tools.eval_quantized instead",
+              file=sys.stderr)
         return 1
     model.load_state_dict(weights, strict=True)
     if not args.checkpoint:

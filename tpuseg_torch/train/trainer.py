@@ -274,7 +274,7 @@ class Trainer:
         has them), checked at build time. Returns (loss, teacher_fn)."""
         import dataclasses
 
-        from tpuseg_torch.infer.predictor import QuantCheckpointError, load_variables
+        from tpuseg_torch.infer.predictor import load_checkpoint
         from tpuseg_torch.train.distill import make_distill_loss, make_teacher_fn
         from tpuseg_torch.train.loss import cross_entropy_loss
 
@@ -286,13 +286,12 @@ class Trainer:
             # the fused decoder kernel is eval-only and single-card
             use_pallas=False)
         teacher = build_model(t_cfg)
-        try:
-            weights = load_variables(t.distill_checkpoint, teacher.state_dict)
-        except QuantCheckpointError as e:
+        weights, quant = load_checkpoint(t.distill_checkpoint, teacher.state_dict)
+        if quant:
             raise ValueError(
                 f"distill_checkpoint {t.distill_checkpoint!r} carries a calibrated int8 "
                 "'quant' collection — distill from the fp32 training checkpoint "
-                "instead") from e
+                "instead")
         # fail at build time, not at the first step
         try:
             teacher.load_state_dict(weights, strict=True)
