@@ -178,6 +178,25 @@ printing one JSON line; any failure raises and exits nonzero:
              each with --train.mu_dtype=bfloat16 and --train.grads_bf16=true
              (mu bf16, nu and the parameters fp32, finite losses). Its
              path launches join the summary's counts.
+9b. spatial — the spatially sharded train step, after mesh: the Lovász
+             kernels at one rank's slab [10, 131,072] (another plan than
+             the whole batch's) against their plain versions; two ranks
+             (as mesh_route places them) train the full-width flagship 20
+             steps from the packed set through ``tpuseg_torch.main
+             --mesh.data=1 --mesh.spatial=2 --train.loss=ce+lovasz`` (64-row
+             slabs of the 256x128 frame; the loss falls, 20 launches of each
+             Lovász kernel per rank, uncaptured), then per rank the p50 step
+             on the host clock, the sharded Lovász region, the row fetches'
+             time (synchronized timers around each fetch) and, on the last
+             of 3 eager A/B steps, the activation peak against one
+             process's at batch 8 (at most SPATIAL_MEMORY_RATIO); those 3
+             steps against one process on the same batches: step 1's
+             train-mode logits assembled from the slabs within
+             SPATIAL_LOGITS_TOL of their largest magnitude, the loss within
+             SPATIAL_LOSS_RTOL, the summed gradients within the mesh
+             phase's 5% (and the same check failing on them doubled), every
+             rank bit-equal; the same 3 steps at data 2 x spatial 2 on four
+             ranks, with the same checks.
 10. export — quantize and export, on the serve phase's seeded
              flagship weights, plain decoder: (1) calibration on the card
              (8 batches of 8 synthetic scenes, 61 convs), every calibrated
@@ -218,7 +237,9 @@ Then the kernels summary line, nvidia-smi's line, and, last, the result
 line {"ok": true, "device": {...}}. A kernel's ``launches`` there are its
 launches on the serving (serve and video phases) or training path (train,
 train_packed, train_contact's QAT and distilled runs and its 3 steps on
-each rank, and the mesh phase's 20 steps on each rank); fused_inverted_residual runs on
+each rank, the mesh phase's 20 steps on each rank, and the spatial
+phase's 20 steps on each of its two ranks and 3 on each of its four);
+fused_inverted_residual runs on
 no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
 result. fp32 comparisons run with TF32 off for both cuDNN and matmul. The
@@ -1889,8 +1910,8 @@ def contact_rank(device, flags, n_convs: int) -> dict:
     seen = []
     act_scale = fake_quant.act_scale
 
-    def recorded(xf, mesh=None):
-        scale = act_scale(xf, mesh)
+    def recorded(xf, mesh=None, spatial=False):
+        scale = act_scale(xf, mesh, spatial)
         if len(seen) < n_convs:
             seen.append((xf.detach().abs().amax().item(), scale.item(), mesh is not None))
         return scale
@@ -2683,6 +2704,283 @@ def phase_mesh(n_ranks: int = MESH_RANKS) -> dict:
     return out
 
 
+# the spatial phase: the flagship with its image height sharded over two
+# ranks (64-row slabs of the 256x128 frame), then data 2 x spatial 2
+SPATIAL_STEPS, SPATIAL_TIMED, SPATIAL_FETCH_STEPS, SPATIAL_AB_STEPS = 20, 8, 2, 3
+SPATIAL_FLAGS = ["--train.loss=ce+lovasz", "--train.epochs=1", "--train.checkpoint_dir=",
+                 "--train.log_every=0"]
+# the train-mode logits assembled from the slabs against one process's at
+# step 1, in units of their largest magnitude: the same function, its
+# float32 sums (BatchNorm's over two halves) in another order
+SPATIAL_LOGITS_TOL = 1e-3
+# the first loss against one process's (the mesh phase reads 1e-5-level gaps)
+SPATIAL_LOSS_RTOL = 1e-4
+# each rank's activation peak (a step's max_memory_allocated less what was
+# allocated before it) against one process's at the same global batch, both
+# measured on the last A/B step (a fresh Trainer, eager): the activations
+# sharded, not replicated, allow at most this share (the subpixel
+# decoder's composite kernels, ~65 MB saved for the backward, do not shard)
+SPATIAL_MEMORY_RATIO = 0.75
+
+
+def spatial_ab_run(flags, keep: bool, steps: int) -> dict:
+    """``steps`` eager steps of a fresh Trainer (ce+lovasz) on its own seeded
+    batches: the losses, the first step's train-mode logits (this rank's
+    slab, NCHW), the launches, (``keep``) the first step's summed
+    gradients, the last step's activation peak, and the digest of the
+    state after the last step."""
+    import hashlib
+
+    tr = graph_trainer(["--train.loss=ce+lovasz", *flags])
+    seen = []
+    hook = tr.model.register_forward_hook(
+        lambda m, i, o: seen.append(o.detach().cpu().numpy()) if not seen else None)
+    out = {"losses": []}
+    kernels.reset_launches()
+    with graphs.eager():
+        for i, batch in enumerate(draw_batches(tr, steps)):
+            if i == steps - 1:
+                out["activation_peak_mb"] = activation_peak_mb(
+                    lambda: out["losses"].append(float(tr.train_step(*batch)["loss"])))
+            else:
+                out["losses"].append(float(tr.train_step(*batch)["loss"]))
+            if keep and i == 0:
+                out["grads1"] = {k: p.grad.cpu().numpy().copy()
+                                 for k, p in tr.model.named_parameters() if p.grad is not None}
+    torch.cuda.synchronize()
+    hook.remove()
+    out["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    out["logits1"] = seen[0]
+    digest = hashlib.sha256()
+    for k, v in tr.model.state_dict().items():
+        digest.update(v.cpu().numpy().tobytes())
+    out["digest"] = digest.hexdigest()
+    del tr
+    return out
+
+
+def activation_peak_mb(step) -> float:
+    """The device memory a call of ``step`` allocates at its peak beyond
+    what was allocated before it (parameters, gradients, optimizer state,
+    the batch), MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def fetch_timer():
+    """Wrap the row fetch's forward and backward in host-clock timers (each
+    synchronized); returns (the list of ms they append to, undo)."""
+    from tpuseg_torch.parallel import spatial
+
+    fn = spatial._FetchRows
+    fwd, bwd, spent = fn.forward, fn.backward, []
+
+    def timed(inner):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return staticmethod(call)
+
+    fn.forward, fn.backward = timed(fwd), timed(bwd)
+
+    def undo():
+        fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+
+    return spent, undo
+
+
+def spatial_rank(device, flags, logits_np, targets_np) -> dict:
+    """One rank of the spatial phase's two (a spawned process on
+    ``device``): the flagship trained through the entry point with the
+    image height over the ranks, timed; its fetches and the sharded Lovász
+    region timed; then the A/B steps against one process."""
+    from tpuseg_torch.core.mesh import batch_slice, create_mesh
+    from tpuseg_torch.main import main as train_main
+    from tpuseg_torch.ops.lovasz import lovasz_histograms, lovasz_lookup, sharded_lovasz_parts
+
+    fp32_exact()
+    mesh = create_mesh(1, 2)
+    index = batch_slice(mesh, logits_np.shape[:2], 1)
+    lg = torch.from_numpy(logits_np[index]).to(device)
+    tg = torch.from_numpy(targets_np[index]).to(device)
+    out = {"rank": mesh.rank, "backend": mesh.backend, "slab": [index[1].start, index[1].stop],
+           "region_ms": mesh_timed(lambda: sharded_lovasz_parts(
+               lg, tg, mesh, True, None, lovasz_histograms, lovasz_lookup))}
+    kernels.reset_launches()
+    tr = train_main(flags)
+    torch.cuda.synchronize()
+    out["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    out.update(losses=tr.step_losses, steps=tr.step, spatial=tr.spatial, mesh=str(tr.mesh),
+               val_miou=tr.history[-1].get("val_miou"),
+               captured=hasattr(tr.train_step, "replays"))
+    batches = list(tr.pipeline.train_batches(SPATIAL_TIMED + SPATIAL_FETCH_STEPS))
+    lat = []
+    for batch in batches[:SPATIAL_TIMED]:
+        t0 = time.perf_counter()
+        tr.train_step(*batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    out["p50_step_ms"] = float(np.median(lat[2:]))
+    spent, undo = fetch_timer()
+    try:
+        for batch in batches[SPATIAL_TIMED:]:
+            tr.train_step(*batch)
+    finally:
+        undo()
+    out["fetches_per_step"] = len(spent) // SPATIAL_FETCH_STEPS
+    out["fetch_ms_per_step"] = sum(spent) / SPATIAL_FETCH_STEPS
+    del tr, batches
+    out["ab"] = spatial_ab_run(["--mesh.data=1", "--mesh.spatial=2"], keep=mesh.rank == 0,
+                               steps=SPATIAL_AB_STEPS)
+    return out
+
+
+def fp32_exact() -> None:
+    """TF32 off for cuDNN and matmul, as main() and the entry point set it
+    (a spawned rank starts with PyTorch's defaults)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def combined_rank(device) -> dict:
+    """One rank of data 2 x spatial 2: the A/B steps against one process."""
+    from tpuseg_torch.core.mesh import create_mesh
+
+    fp32_exact()
+    mesh = create_mesh(2, 2)
+    out = spatial_ab_run(["--mesh.data=2", "--mesh.spatial=2"], keep=mesh.rank == 0,
+                         steps=SPATIAL_AB_STEPS)
+    out["coords"] = mesh.coords
+    return out
+
+
+def lovasz_slab_check(parts: int) -> dict:
+    """lovasz_histograms and lovasz_lookup at one rank's slab, [C, P/parts]
+    (another plan than the whole batch's), against their plain versions:
+    counts, fg sums and w bit-equal, error sums within ERRSUM_RTOL of f64."""
+    from tpuseg_torch.ops import lovasz
+
+    c, p = LOVASZ_SHAPE
+    e, fg = (t[:, :p // parts].contiguous() for t in lovasz_planes(700))
+    hk, hp = lovasz.lovasz_histograms(e, fg), lovasz.lovasz_histograms_plain(e, fg)
+    h64 = lovasz.lovasz_histograms_plain(e.double(), fg.double())
+    coef, _ = lovasz.coefficients(*hp)
+    wk, wp = lovasz.lovasz_lookup(e, coef), lovasz.lovasz_lookup_plain(e, coef)
+    torch.cuda.synchronize()
+    err = (hk[2] - hp[2]).abs()
+    if not (torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1]) and torch.equal(wk, wp)) \
+            or bool((err > ERRSUM_RTOL * h64[2].abs() + 1e-7).any()):
+        raise AssertionError(f"spatial: the Lovász kernels at the slab's [{c}, {p // parts}] "
+                             f"differ from their plain versions (error sums {float(err.max())})")
+    return {"shape": [c, p // parts], "counts_fg_w_bit_equal": True,
+            "errsum_max_abs_err": float(err.max())}
+
+
+def spatial_vs_one(ranks_ab, one: dict, slabs, what: str) -> dict:
+    """Step 1 of the ranks (``ranks_ab``: each rank's spatial_ab_run, its H
+    slab in ``slabs``) against one process's: logits, summed gradients,
+    loss; the ranks' losses and parameters bit-equal among themselves."""
+    r0 = ranks_ab[0]
+    if any(r["digest"] != r0["digest"] or r["losses"] != r0["losses"] for r in ranks_ab):
+        raise AssertionError(f"spatial {what}: the ranks' parameters or losses differ")
+    want = one["logits1"]
+    got = np.zeros_like(want)
+    for r, (rows, (lo, hi)) in zip(ranks_ab, slabs):
+        got[rows, :, lo:hi] = r["logits1"]
+    scale = float(np.abs(want).max())
+    out = {"logits_diff_over_max": float(np.abs(got - want).max()) / scale,
+           "loss1_rdiff": abs(r0["losses"][0] - one["losses"][0]) / abs(one["losses"][0]),
+           "losses": r0["losses"], "one_process_losses": one["losses"][:len(r0["losses"])],
+           "first_step_grad_rdiff": grad_rdiff(r0["grads1"], one["grads1"]),
+           "planted_x2_grad_rdiff": grad_rdiff({k: 2 * v for k, v in r0["grads1"].items()},
+                                               one["grads1"]),
+           "params_bit_equal_across_ranks": True}
+    if (out["logits_diff_over_max"] > SPATIAL_LOGITS_TOL
+            or out["loss1_rdiff"] > SPATIAL_LOSS_RTOL
+            or out["first_step_grad_rdiff"] > MESH_AB_GRAD_RTOL
+            or out["planted_x2_grad_rdiff"] <= MESH_AB_GRAD_RTOL):
+        raise AssertionError(f"spatial {what} against one process: {out}")
+    return out
+
+
+def phase_spatial(packed: str) -> dict:
+    """The spatially sharded train step on the card (see the module)."""
+    from tpuseg_torch.core.mesh import launch_local
+
+    out = {"phase": "spatial", "lovasz_slab": lovasz_slab_check(2)}
+    rng = np.random.RandomState(SEED)
+    logits = (rng.randn(BATCH, *MODEL_HW, CLASSES) * 2).astype(np.float32)
+    targets = rng.randint(0, CLASSES, (BATCH, *MODEL_HW))
+    route, backend = mesh_route(2)
+    flags = ["--mesh.data=1", "--mesh.spatial=2", *SPATIAL_FLAGS, packed_source_flag(packed),
+             f"--train.steps_per_epoch={SPATIAL_STEPS}", f"--data.val_split={VAL_SPLIT}"]
+    t0 = time.perf_counter()
+    ranks = launch_local(spatial_rank, 2, device="cuda", timeout_s=600,
+                         args=(flags, logits, targets))
+    out["wall_s"] = time.perf_counter() - t0
+
+    # one process on the same batches, uncaptured as the ranks' steps are
+    one = spatial_ab_run([], keep=True, steps=SPATIAL_AB_STEPS)
+    one_peak = one["activation_peak_mb"]
+
+    rows = []
+    for r in ranks:
+        losses = r["losses"]
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        want = {"lovasz_histograms": SPATIAL_STEPS, "lovasz_lookup": SPATIAL_STEPS}
+        ratio = r["ab"]["activation_peak_mb"] / one_peak
+        row = {"rank": r["rank"], "slab_rows": r["slab"], "launches": r["launches"],
+               "loss_first5": first, "loss_last5": last, "val_miou": r["val_miou"],
+               "p50_step_ms": r["p50_step_ms"], "lovasz_region_ms": r["region_ms"],
+               "fetches_per_step": r["fetches_per_step"],
+               "fetch_ms_per_step": r["fetch_ms_per_step"],
+               "activation_peak_mb": r["ab"]["activation_peak_mb"],
+               "one_process_activation_peak_mb": one_peak, "activation_ratio": ratio,
+               "mesh": r["mesh"]}
+        if (r["launches"] != want or r["steps"] != SPATIAL_STEPS or not r["spatial"]
+                or r["captured"] or r["backend"] != backend
+                or not all(math.isfinite(x) for x in losses) or not last < first
+                or not math.isfinite(r["val_miou"] or float("nan"))
+                or ratio > SPATIAL_MEMORY_RATIO):
+            raise AssertionError(f"spatial: rank {r['rank']}: {row}, losses {losses}")
+        rows.append(row)
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("spatial: the ranks' losses differ")
+    out.update(route=route, ranks=2, frame=list(MODEL_HW), batch=BATCH, train=rows,
+               vs_one_process=spatial_vs_one(
+                   [r["ab"] for r in ranks], one,
+                   [(slice(None), r["slab"]) for r in ranks], "data 1 x spatial 2"))
+
+    route4, _ = mesh_route(4)
+    t0 = time.perf_counter()
+    four = launch_local(combined_rank, 4, device="cuda", timeout_s=600)
+    half_b, half_h = BATCH // 2, MODEL_HW[0] // 2
+    slabs = [(slice(r["coords"]["data"] * half_b, (r["coords"]["data"] + 1) * half_b),
+              (r["coords"]["spatial"] * half_h, (r["coords"]["spatial"] + 1) * half_h))
+             for r in four]
+    ratios = [r["activation_peak_mb"] / one_peak for r in four]
+    out["combined"] = {"route": route4, "ranks": 4, "wall_s": time.perf_counter() - t0,
+                       "launches_per_rank": [r["launches"] for r in four],
+                       "activation_peak_mb": [r["activation_peak_mb"] for r in four],
+                       "activation_ratio": ratios,
+                       "vs_one_process": spatial_vs_one(four, one, slabs,
+                                                        "data 2 x spatial 2")}
+    want = {"lovasz_histograms": SPATIAL_AB_STEPS, "lovasz_lookup": SPATIAL_AB_STEPS}
+    if max(ratios) > SPATIAL_MEMORY_RATIO or any(r["launches"] != want for r in four):
+        raise AssertionError(f"spatial data 2 x spatial 2: activation ratios {ratios}, "
+                             f"launches {[r['launches'] for r in four]}")
+    emit(out)
+    return out
+
+
 # the graphs phase: the options configuration of its second train A/B, the
 # steps of each A/B and timing, and K of the multi-step dispatch
 GRAPH_OPTIONS = ["--train.optimizer=adamw", "--train.lr_schedule=cosine",
@@ -3423,10 +3721,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as packed_dir:
         packed = phase_train_packed(train, packed_dir)
         contact = phase_train_contact(packed_dir)
-    bf16 = phase_bf16(perf, train)
-    mesh = phase_mesh()
+        bf16 = phase_bf16(perf, train)
+        mesh = phase_mesh()
+        spatial = phase_spatial(packed_dir)
+    spatial_launches = [r["launches"] for r in spatial["train"]] + \
+        spatial["combined"]["launches_per_rank"]
     train_counts = {k: train["launches"][k] + packed["launches"][k]
                     + sum(r["launches"].get(k, 0) for r in mesh["train"])
+                    + sum(r.get(k, 0) for r in spatial_launches)
                     + bf16["path_launches"][k] + contact["launches"][k]
                     + sum(r.get(k, 0) for r in contact["mesh_launches_per_rank"])
                     for k in train["launches"]}
@@ -3479,6 +3781,10 @@ def main() -> int:
         extra[k]["train_contact_launches"] = {
             "qat": contact["qat"]["launches"][k], "distill": contact["distill"]["launches"][k],
             "qat_distill_per_rank": [r[k] for r in contact["mesh_launches_per_rank"]]}
+        extra[k]["spatial_launches_per_rank"] = [r.get(k, 0) for r in spatial_launches]
+        extra[k]["spatial_slab_check"] = spatial["lovasz_slab"]
+    extra["lovasz_lookup"]["make_sharded_lovasz"]["spatial_region_ms_per_rank"] = [
+        r["lovasz_region_ms"] for r in spatial["train"]]
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": perf[k]["max_abs_err"],

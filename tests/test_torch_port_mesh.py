@@ -42,6 +42,14 @@ ranks' results.
   port's one-process run (losses at rtol 1e-4, float32 sums over two
   halves in another order); rank 0 alone writes the checkpoints, and
   both ranks resume them.
+- The spatially sharded train step at world 4 (data 2 x spatial 2):
+  ``fetch_rows`` against one process's rows and gradients (halos of 1 and
+  6 rows, uneven layers, the clamp); the flagship's 3-step f64
+  trajectory with the image height sharded against the same JAX mesh
+  step as the world-2 one; one f64 step of every family (the flagship's
+  at H 32, whose 1/32 layer is one row) against the port's one-process
+  step; the Trainer with ``--mesh.data=2 --mesh.spatial=2`` against the
+  JAX spatial Trainer; a height of 15 refused by both.
 """
 
 import concurrent.futures
@@ -167,6 +175,84 @@ def _qat_distill_inputs():
     return student, teacher, batches, port(student), port(teacher)
 
 
+# (layer heights for the two data rows, halo, clamp): a 3x3 conv's one row
+# at 8 rows a rank, the ASPP's rate 6 on 2 rows a rank (past the neighbour
+# and the frame), uneven layers (3 rows: 2 and 1; 1 row: 1 and none), and
+# the bilinear edge clamp
+FETCH_CASES = [((16, 16), 1, False), ((4, 4), 6, False), ((3, 3), 1, False),
+               ((1, 1), 1, False), ((6, 5), 2, True)]
+
+
+@functools.lru_cache(maxsize=None)
+def _fetch_cases():
+    """Each case's f64 layers [2, h, 3, 2] (one per data row) and every
+    rank's weights on its fetched rows: [data][spatial] -> [2, rows, 3, 2]."""
+    from tpuseg_torch.parallel.spatial import owned
+
+    rng = np.random.RandomState(21)
+    out = []
+    for heights, halo, clamp in FETCH_CASES:
+        layers = [rng.randn(2, h, 3, 2) for h in heights]
+        weights = []
+        for h in heights:
+            spans = [owned(h, 2, j) for j in range(2)]      # a rank of no rows asks none
+            weights.append([rng.randn(2, stop - start + 2 * halo if stop > start else 0, 3, 2)
+                            for start, stop in spans])
+        out.append((layers, halo, clamp, weights))
+    return out
+
+
+# the five families for one spatial f64 step: (model config, H x W, loss,
+# options of the step, which ride along to cover them under the spatial mode)
+TEACHER = dict(name="unet", base_filters=4)
+SPATIAL_FAMILIES = {
+    # distilled from a UNet teacher, whose eval forward runs on the slab too
+    "mobilenetv2_fpn": (dict(name="mobilenetv2_fpn", width_mult=0.25, base_filters=8),
+                        (32, 64), "ce", {"teacher": TEACHER}),
+    "mobilenetv2_deeplab": (dict(name="mobilenetv2_deeplab", width_mult=0.25,
+                                 base_filters=8), (64, 64), "ce+lovasz", {"remat": True}),
+    "unet": (dict(name="unet", base_filters=4), (32, 16), "ce+dice", {}),
+    "light_unet": (dict(name="light_unet", base_filters=4), (32, 16), "mse", {}),
+    # H 32: the 1/32 layer is one row, owned by the first spatial rank alone
+    "mobilenetv2_unet-subpixel": (dict(width_mult=0.25, up_subpixel=True), (32, 64), "lovasz",
+                                  {}),
+}
+# QAT's fake-quant rounds in float32 whatever the dtype (ops/fake_quant.py),
+# so its gradients carry float32 rounding: held apart, at its own tolerance
+SPATIAL_QAT = {"unet-qat": (dict(name="unet", base_filters=4), (32, 16), "ce", {"qat": True})}
+
+
+def _seeded_state(kw: dict, seed: int) -> dict:
+    """The port's seeded init in f64 with non-trivial BatchNorm affine and
+    statistics and conv biases."""
+    from tpuseg_torch.configs import ModelConfig
+    from tpuseg_torch.models.registry import build_model
+
+    rng = np.random.RandomState(seed)
+    state = {}
+    for k, v in build_model(ModelConfig(**kw), seed=seed).state_dict().items():
+        v = v.to(torch.float64).numpy() if v.is_floating_point() else v.numpy()
+        if k.endswith(("running_var", ".weight")) and v.ndim == 1:
+            v = rng.uniform(0.5, 1.5, v.shape)
+        elif k.endswith(("running_mean", ".bias")) and v.ndim == 1:
+            v = rng.uniform(-0.2, 0.2, v.shape)
+        state[k] = v
+    return state
+
+
+@functools.lru_cache(maxsize=None)
+def _family_cases():
+    """{name: (config, state, loss, options, images [4, H, W, 3], labels)}."""
+    out = {}
+    for i, (name, (kw, hw, loss, opts)) in enumerate({**SPATIAL_FAMILIES, **SPATIAL_QAT}.items()):
+        if "teacher" in opts:
+            opts = {"teacher": (opts["teacher"], _seeded_state(opts["teacher"], 40 + i))}
+        rng = np.random.RandomState(30 + i)
+        out[name] = (kw, _seeded_state(kw, 30 + i), loss, opts, rng.rand(4, *hw, 3),
+                     rng.randint(0, 10, (4, *hw)))
+    return out
+
+
 @pytest.fixture(scope="module")
 def groups(tmp_path_factory):
     """The two rank groups, started at once, one after the other, on a
@@ -186,11 +272,24 @@ def groups(tmp_path_factory):
           "qat_distill": (*_qat_distill_inputs()[3:], _qat_distill_inputs()[2], KD_BF, LR)}
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     w4 = {"sharded_lovasz": (2, 2, *_lovasz_inputs()), "spatial": _spatial_inputs(),
-          "losses": (*_loss_inputs(), WEIGHTS, 2, 2)}
+          "losses": (*_loss_inputs(), WEIGHTS, 2, 2), "fetch": (_fetch_cases(),),
+          "spatial_trajectory": (state, batches, WIDTH, LR),
+          "spatial_families": (_family_cases(), LR),
+          "spatial_trainer": ([a for a in argv if a != "--mesh.data=2"]
+                              + ["--mesh.data=2", "--mesh.spatial=2"],)}
     futures = {world: pool.submit(launch_local, ranks.suite, world, timeout_s=TIMEOUT,
                                   args=(inputs,)) for world, inputs in ((2, w2), (4, w4))}
     yield futures
     pool.shutdown(wait=True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _oracles_beside_the_ranks(groups, jax_trajectories, jax_qat_distill, one_process_trainers,
+                              jax_spatial_trainer, jax_lovasz):
+    """The JAX oracles (and the one-process Trainer), computed in this
+    process while the rank groups run in theirs: the first test that waits
+    on the ranks finds them ready, and the file's time is the longer of the
+    two, not their sum."""
 
 
 def _ranks(groups, name, world=2):
@@ -238,11 +337,12 @@ def jax_trajectories():
                               dtype=jnp.float64)
         cast = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), t)
         step = jax_make_train_step(mesh=mesh, donate=False, loss_fn=_either_loss(mesh))
+        # one tx object: both states have one tree, so the step traces once
+        tx = optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8)
         out = {}
         for loss, offset in (("ce", 0), ("lovasz", LOVASZ_FLAG)):
             state = TrainState.create(apply_fn=fm.apply, params=cast(variables["params"]),
-                                      batch_stats=cast(variables["batch_stats"]),
-                                      tx=optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8))
+                                      batch_stats=cast(variables["batch_stats"]), tx=tx)
             # replicated on the mesh, as the step returns it (and as the JAX
             # Trainer ships it): the step then compiles once, not again at
             # its second call
@@ -278,7 +378,10 @@ def test_world2_f64_trajectory_matches_jax_mesh_step(groups, jax_trajectories, l
     assert n_stats > 100 and got["backbone.features.0.1.num_batches_tracked"] == len(want_losses)
 
 
-def test_world2_f64_qat_distill_step_matches_jax_mesh_step(groups):
+@pytest.fixture(scope="module")
+def jax_qat_distill():
+    """(losses, state dict) of JAX's ``make_train_step`` over
+    ``create_mesh(data=2)`` with the "qat" markers and the teacher."""
     from tpuseg.models.unet import UNet as FlaxUNet
     from tpuseg.ops.fake_quant import build_qat_markers
     from tpuseg.train.distill import make_distill_loss, make_teacher_fn
@@ -306,6 +409,11 @@ def test_world2_f64_qat_distill_step_matches_jax_mesh_step(groups):
                                      "batch_stats": state.batch_stats}, dtype=torch.float64)
     finally:
         jax.config.update("jax_enable_x64", False)
+    return want_losses, want
+
+
+def test_world2_f64_qat_distill_step_matches_jax_mesh_step(groups, jax_qat_distill):
+    want_losses, want = jax_qat_distill
     (losses0, got, digest0), (losses1, _, digest1) = _ranks(groups, "qat_distill")
     assert digest0 == digest1 and losses0 == losses1
     np.testing.assert_allclose(losses0, want_losses, rtol=1e-6)
@@ -637,3 +745,149 @@ def test_spatial_insufficient_halo_detected(groups):
         assert not np.allclose(r["wide"], ref, atol=1e-4)
     with pytest.raises(ValueError, match="halo 3 not a multiple of downscale 2"):
         spatial_shard_apply(lambda t: t, Mesh(1, 2, 0, "gloo"), halo=3, downscale=2)
+
+
+# -- the spatially sharded train step (world 4: data 2 x spatial 2) -------------------
+
+
+@pytest.mark.parametrize("case", range(len(FETCH_CASES)),
+                         ids=["halo1", "halo6", "uneven3", "uneven1", "clamp"])
+def test_world4_fetch_rows_equal_one_process(groups, case):
+    """Each rank's fetched rows are the global rows it asked for (zero rows,
+    or the edge row under the clamp, beyond the frame), and each owned
+    row's gradient is the sum over every rank that read it, f64 to 1e-12."""
+    layers, halo, clamp, weights = _fetch_cases()[case]
+    got = [r[case] for r in _ranks(groups, "fetch", 4)]
+    for i, layer in enumerate(layers):
+        h = layer.shape[1]
+        grad = np.zeros_like(layer)
+        for j in range(2):
+            r = got[2 * i + j]
+            lo, hi = r["request"]
+            rows = np.arange(lo, hi)
+            src, keep = np.clip(rows, 0, h - 1), (rows >= 0) & (rows < h) | clamp
+            want = layer[:, src] * keep[None, :, None, None]
+            np.testing.assert_allclose(r["rows"], want, rtol=0, atol=1e-12)
+            np.add.at(grad, (slice(None), src[keep]), weights[i][j][:, keep])
+        assembled = np.concatenate([got[2 * i + j]["grad"] for j in range(2)], axis=1)
+        np.testing.assert_allclose(assembled, grad, rtol=0, atol=1e-12)
+        # a rank's gradient includes the other's reads of its rows
+        assert np.abs(grad).max() > 1e-3
+
+
+@pytest.mark.parametrize("loss", ["ce", "lovasz"])
+def test_world4_spatial_f64_trajectory_matches_jax_mesh_step(groups, jax_trajectories, loss):
+    """The flagship's 3 f64 steps with the image height sharded over a 2x2
+    mesh against JAX's ``make_train_step`` over ``create_mesh(data=2)``:
+    GSPMD's spatial step is the same function as the data-only one (it
+    only places the work), so one JAX compile is the oracle of both. The
+    world-2 trajectory's tolerances; the parameters bit-equal on all four
+    ranks."""
+    want_losses, want = jax_trajectories[loss]
+    results = [r[loss] for r in _ranks(groups, "spatial_trajectory", 4)]
+    assert len({r[2] for r in results}) == 1 and len({tuple(r[0]) for r in results}) == 1
+    losses, got, _ = results[0]
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-9)
+    n_stats = 0
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(got[k], w.numpy(), rtol=1e-9, atol=1e-10, err_msg=k)
+            n_stats += 1
+        else:
+            np.testing.assert_allclose(got[k], w.numpy(), rtol=1e-6, atol=1e-8, err_msg=k)
+    assert n_stats > 100 and got["backbone.features.0.1.num_batches_tracked"] == len(want_losses)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_process_family_step(name: str):
+    """The port's one-process f64 step of ``_family_cases()[name]``."""
+    return ranks.family_step(*_family_cases()[name], LR)
+
+
+@pytest.mark.parametrize("name", list(SPATIAL_FAMILIES))
+def test_world4_spatial_family_step_equals_one_process(groups, name):
+    """One f64 step of each family with the image height sharded over a
+    2x2 mesh equals the port's one-process step (itself held to JAX by the
+    family tests), with distillation and remat riding along on two of
+    them: the loss and the summed gradients at rtol 1e-9 (atol 1e-12 of
+    the largest, for the conv biases under a BatchNorm, whose gradient is
+    round-off), the updated parameters and statistics at rtol 1e-6; every
+    rank bit-equal."""
+    want_loss, want_grads, want_state, _ = _one_process_family_step(name)
+    results = [r[name] for r in _ranks(groups, "spatial_families", 4)]
+    assert len({r[3] for r in results}) == 1
+    loss, grads, state, _ = results[0]
+    assert loss == pytest.approx(want_loss, rel=1e-9)
+    scale = max(np.abs(g).max() for g in want_grads.values())
+    assert scale > 1e-3
+    for k, w in want_grads.items():
+        np.testing.assert_allclose(grads[k], w, rtol=1e-9, atol=1e-12 * scale, err_msg=k)
+    for k, w in want_state.items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(state[k], w, rtol=1e-6, atol=1e-12, err_msg=k)
+
+
+def test_world4_spatial_qat_step_equals_one_process(groups):
+    """QAT with the image height sharded: every conv+BatchNorm conv's
+    activation range is the whole mesh's, so the fake-quantized values
+    equal one process's and the loss agrees at rtol 1e-9; the gradients
+    pass the straight-through estimator in float32, so they and the
+    updated parameters agree at float32's rtol 1e-5 (atol 1e-7 of the
+    largest gradient); every rank bit-equal."""
+    want_loss, want_grads, want_state, _ = _one_process_family_step("unet-qat")
+    results = [r["unet-qat"] for r in _ranks(groups, "spatial_families", 4)]
+    assert len({r[3] for r in results}) == 1
+    loss, grads, state, _ = results[0]
+    assert loss == pytest.approx(want_loss, rel=1e-9)
+    scale = max(np.abs(g).max() for g in want_grads.values())
+    for k, w in want_grads.items():
+        np.testing.assert_allclose(grads[k], w, rtol=1e-5, atol=1e-7 * scale, err_msg=k)
+    for k, w in want_state.items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(state[k], w, rtol=1e-5, atol=1e-9, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def jax_spatial_trainer():
+    """The JAX Trainer over create_mesh(data=2, spatial=2) on the world-4
+    run's flags."""
+    jt = _jax_trainer([*TRAINER_FLAGS, "--mesh.data=2", "--mesh.spatial=2"])
+    jt.train()
+    return jt
+
+
+def test_world4_spatial_trainer_matches_the_jax_spatial_trainer(groups, jax_spatial_trainer,
+                                                                 one_process_trainers):
+    """``tpuseg_torch.main --mesh.data=2 --mesh.spatial=2`` on four ranks:
+    the JAX spatial Trainer's records at the same steps, the losses of the
+    port's one-process run at rtol 1e-4 (float32 sums in another order),
+    the parameters bit-equal on every rank."""
+    jt = jax_spatial_trainer
+    _, one = one_process_trainers
+    assert jt.mesh.shape == {"data": 2, "spatial": 2}
+    results = _ranks(groups, "spatial_trainer", 4)
+    assert len({r["trained"] for r in results}) == 1
+    for r in results:
+        assert r["spatial"] and r["step"] == jt.step == 2
+        assert [h["step"] for h in r["history"]] == [h["step"] for h in jt.history] == [1, 2]
+        for got, want in zip(r["history"], jt.history):
+            assert set(got) - {"best"} == set(want) - {"best"}
+        np.testing.assert_allclose(r["losses"], one.step_losses, rtol=1e-4)
+
+
+def test_spatial_height_must_divide_in_both_packages(groups):
+    """data.height 15 over a spatial axis of 2 raises a ValueError naming
+    the spatial axis, before the model is built, in both packages."""
+    from tpuseg.configs import DatasetSourceConfig
+    from tpuseg.configs import load_config as jax_load_config
+    from tpuseg.train.trainer import Trainer as JaxTrainer
+
+    cfg = jax_load_config([*JAX_TINY, *TRAINER_FLAGS, "--mesh.data=2", "--mesh.spatial=2",
+                           "--data.height=15"])
+    cfg.data.sources = (DatasetSourceConfig(kind="synthetic", num_samples=16, weight=1.0),)
+    with pytest.raises(ValueError, match="spatial") as want:
+        JaxTrainer(cfg)
+    for r in _ranks(groups, "spatial_trainer", 4):
+        assert r["raised"] == str(want.value)

@@ -4,8 +4,9 @@ tpuseg_torch/train/train_step.py) against the JAX package's.
 3-step trajectories in float64 at the settings of
 tests/test_torch_port_train.py (mobilenetv2_unet at width_mult 0.25,
 64x128, batch 2, the same Flax init with non-trivial BatchNorm statistics
-in both packages, augment off): losses at rtol 1e-9, parameters (and the
-EMA) at rtol 1e-6 / atol 1e-8, BatchNorm running statistics at rtol 1e-9.
+in both packages, made once: ``_variables`` caches it; augment off):
+losses at rtol 1e-9, parameters (and the EMA) at rtol 1e-6 / atol 1e-8,
+BatchNorm running statistics at rtol 1e-9.
 The JAX side builds its optax chain with the JAX Trainer's own
 ``_build_optimizer`` from the same flags that build the port's
 ``build_optimizer``, and runs JAX's ``make_train_step`` (or

@@ -30,6 +30,8 @@ default, is held to JAX in f32 by the last test: one step's loss and
 BatchNorm statistics.
 """
 
+import functools
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -94,8 +96,10 @@ def _port_taps_matrix(n: int) -> np.ndarray:
     return a
 
 
+@functools.lru_cache(maxsize=None)
 def _variables(seed=0):
-    """A Flax init with seeded BN statistics, BN affine and conv biases."""
+    """A Flax init with seeded BN statistics, BN affine and conv biases
+    (made once per seed; callers only read it)."""
     model = FlaxUNet(output_channels=10, width_mult=WIDTH)
     v = jax.jit(lambda k: model.init(k, jnp.zeros((1, *HW, 3)), train=False))(
         jax.random.PRNGKey(seed))
@@ -118,17 +122,50 @@ def _batches(seed, dtype):
             for _ in range(STEPS)]
 
 
+# labels offset by this choose the Lovász in the shared f64 step below
+LOVASZ_FLAG = 10
+
+
+def _either_loss():
+    """One loss for both f64 trajectories, so that JAX's step is traced and
+    compiled once: labels offset by LOVASZ_FLAG take the Lovász, plain ones
+    CE (``jnp.where`` passes the chosen loss's gradient alone), as
+    tests/test_torch_port_mesh.py's mesh step does."""
+    ce, lovasz = jax_make_loss_fn("ce"), jax_make_loss_fn("lovasz")
+
+    def loss_fn(logits, labels):
+        flag = jnp.max(labels) >= LOVASZ_FLAG
+        labels = labels % LOVASZ_FLAG
+        return jnp.where(flag, lovasz(logits, labels), ce(logits, labels))
+
+    return loss_fn
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_f64_step():
+    """(model, tx, jitted step) of both f64 trajectories: one tx object, so
+    both states have one tree and the step traces once."""
+    fm = _FlaxUNetF64Head(output_channels=10, width_mult=WIDTH, up_subpixel=False,
+                          dtype=jnp.float64)
+    return (fm, optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8),
+            jax_make_train_step(donate=False, loss_fn=_either_loss()))
+
+
 def _jax_run(variables, batches, loss, dtype, subpixel, steps):
-    fm = _FlaxUNetF64Head(output_channels=10, width_mult=WIDTH, up_subpixel=subpixel,
-                          dtype=dtype)
+    if dtype == jnp.float64 and not subpixel:
+        fm, tx, step = _jax_f64_step()
+        offset = LOVASZ_FLAG if loss == "lovasz" else 0
+    else:
+        fm = _FlaxUNetF64Head(output_channels=10, width_mult=WIDTH, up_subpixel=subpixel,
+                              dtype=dtype)
+        tx = optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8)
+        step, offset = jax_make_train_step(donate=False, loss_fn=jax_make_loss_fn(loss)), 0
     cast = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), t)
     state = TrainState.create(apply_fn=fm.apply, params=cast(variables["params"]),
-                              batch_stats=cast(variables["batch_stats"]),
-                              tx=optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8))
-    step = jax_make_train_step(donate=False, loss_fn=jax_make_loss_fn(loss))
+                              batch_stats=cast(variables["batch_stats"]), tx=tx)
     losses = []
     for x, y in batches[:steps]:
-        state, metrics = step(state, jnp.asarray(x), jnp.asarray(y))
+        state, metrics = step(state, jnp.asarray(x), jnp.asarray(y + offset))
         losses.append(float(metrics["loss"]))
     return losses, {"params": state.params, "batch_stats": state.batch_stats}
 

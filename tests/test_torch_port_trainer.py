@@ -98,25 +98,19 @@ def test_without_a_card_it_raises_unless_asked_for_the_cpu(monkeypatch, tmp_path
                    device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("--mesh.spatial=2", "A16"),
-])
-def test_unported_options_raise(flag, item):
-    cfg = load_config([*TINY, flag, "--train.checkpoint_dir="])
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(cfg, device="cpu")
-
-
-def test_a_mesh_needs_its_ranks():
+@pytest.mark.parametrize("flags", [["--mesh.data=2"], ["--mesh.data=1", "--mesh.spatial=2"]],
+                         ids=["data", "spatial"])
+def test_a_mesh_needs_its_ranks(flags):
     """One process trains on no mesh at --mesh.data -1 or 1; a larger data
-    axis needs as many ranks (torchrun) and raises as the JAX mesh does
-    without the devices. World-2 training is in tests/test_torch_port_mesh.py."""
+    or spatial axis needs as many ranks (torchrun) and raises as the JAX
+    mesh does without the devices. World-2 and world-4 (spatial) training
+    is in tests/test_torch_port_mesh.py."""
     from tpuseg.core.mesh import create_mesh as jax_create_mesh
 
     for data in (-1, 1):
         cfg = load_config([*TINY, f"--mesh.data={data}", "--train.checkpoint_dir="])
         assert Trainer(cfg, device="cpu").mesh is None
-    cfg = load_config([*TINY, "--mesh.data=2", "--train.checkpoint_dir="])
+    cfg = load_config([*TINY, *flags, "--train.checkpoint_dir="])
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         Trainer(cfg, device="cpu")
     with pytest.raises(ValueError, match="needs 16 devices, have 8"):

@@ -226,6 +226,141 @@ def spatial(device, x_rows, x_stack, kernels, x_wide, wide_kernel):
     return dict(coords=mesh.coords, rows=rows, stack=out, wide=wide)
 
 
+def fetch(device, cases):
+    """``fetch_rows`` over a 2x2 mesh's spatial axis, in float64: for each
+    case ``(layers, halo, clamp, weights)`` (one [B, h, W, C] layer per data
+    row) this rank's rows ``[start - halo, stop + halo)`` of its data row's
+    layer, and the gradient of the global sum of each rank's rows times
+    its ``weights`` with respect to this rank's owned slab."""
+    from tpuseg_torch.parallel.spatial import fetch_rows, owned, window_requests
+
+    mesh = create_mesh(2, 2)
+    i, j = mesh.coords["data"], mesh.coords["spatial"]
+    out = []
+    for layers, halo, clamp, weights in cases:
+        layer = layers[i]
+        h = layer.shape[1]
+        start, stop = owned(h, mesh.spatial, j)
+        x = torch.from_numpy(layer[:, start:stop].copy()).requires_grad_(True)
+        requests = window_requests(h, mesh.spatial, lambda s, e: (s - halo, e + halo))
+        rows = fetch_rows(x, h, requests, mesh, dim=1, clamp=clamp)
+        (rows * torch.from_numpy(weights[i][j])).sum().backward()
+        out.append(dict(rows=rows.detach().numpy(), grad=x.grad.numpy(), start=start,
+                        stop=stop, request=requests[j]))
+    return out
+
+
+def _spatial_model(kw: dict, state: dict):
+    from tpuseg_torch.configs import ModelConfig
+    from tpuseg_torch.models.blocks import set_mesh
+    from tpuseg_torch.models.registry import build_model
+
+    mesh = create_mesh(2, 2)
+    model = build_model(ModelConfig(**kw)).to(torch.float64)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+    return mesh, set_mesh(model, mesh)
+
+
+def spatial_trajectory(device, state: dict, batches, width: float, lr: float):
+    """3 f64 train steps of the flagship (materialized decoder) over a 2x2
+    mesh with the image height sharded (``spatial=True``), for the CE and
+    the Lovász: {loss: (losses, final state_dict, digest)}."""
+    from tpuseg_torch.train.loss import make_loss_fn
+    from tpuseg_torch.train.optim import Optimizer
+    from tpuseg_torch.train.train_step import make_train_step
+
+    out = {}
+    for loss in ("ce", "lovasz"):
+        mesh, model = _spatial_model(dict(width_mult=width, up_subpixel=False), state)
+        step = make_train_step(model, Optimizer(model.parameters(), lr=lr),
+                               loss_fn=make_loss_fn(loss, mesh=mesh, spatial=True), mesh=mesh,
+                               spatial=True)
+        losses = [float(step(torch.from_numpy(x), torch.from_numpy(y))["loss"])
+                  for x, y in batches]
+        out[loss] = (losses, {k: v.numpy() for k, v in model.state_dict().items()},
+                     params_digest(model))
+    return out
+
+
+def spatial_families(device, cases: dict, lr: float):
+    """One f64 spatial train step of each family over a 2x2 mesh:
+    {name: family_step's result}."""
+    mesh = create_mesh(2, 2)
+    return {name: family_step(*case, lr, mesh) for name, case in cases.items()}
+
+
+def family_step(kw: dict, state: dict, loss_name: str, opts: dict, x, y, lr: float,
+                mesh=None):
+    """One f64 train step of a family from ``state`` on the global batch
+    (x, y), over ``mesh`` with the image height sharded when given, with
+    ``opts``: ``remat``, ``qat`` (every conv+BatchNorm conv), ``teacher``
+    ((config, state): distilled at alpha 0.5, T 2). Returns (loss, the
+    (summed) gradients, the state after the update, its digest). The
+    models are channels_last, as the Trainer's."""
+    from tpuseg_torch.configs import ModelConfig
+    from tpuseg_torch.models.blocks import set_mesh
+    from tpuseg_torch.models.registry import build_model
+    from tpuseg_torch.ops.fake_quant import set_qat
+    from tpuseg_torch.train.distill import make_distill_loss, make_teacher_fn
+    from tpuseg_torch.train.optim import Optimizer
+    from tpuseg_torch.train.train_step import make_train_step
+
+    def load(kw, state):
+        # channels_last, as the Trainer runs it: a slab of one row is both
+        # layouts, so the ranks' layouts differ where a layer is uneven
+        model = build_model(ModelConfig(**kw)).to(torch.float64).to(
+            memory_format=torch.channels_last)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+        return model
+
+    model = set_mesh(load(kw, state), mesh)
+    if opts.get("qat"):
+        set_qat(model)
+    loss_fn, teacher_fn = family_loss(loss_name, mesh), None
+    if "teacher" in opts:
+        teacher_fn = make_teacher_fn(load(*opts["teacher"]))
+        loss_fn = make_distill_loss(loss_fn, 0.5, 2.0, mesh=mesh, spatial=mesh is not None)
+    step = make_train_step(model, Optimizer(model.parameters(), lr=lr), loss_fn=loss_fn,
+                           mesh=mesh, spatial=mesh is not None,
+                           remat=opts.get("remat", False), teacher_fn=teacher_fn)
+    loss = float(step(torch.from_numpy(x), torch.from_numpy(y))["loss"])
+    return (loss, {n: p.grad.numpy() for n, p in model.named_parameters()},
+            {k: v.numpy() for k, v in model.state_dict().items()}, params_digest(model))
+
+
+def family_loss(name: str, mesh=None):
+    """``make_loss_fn(name)``, or for "mse" (a one-channel model, whose
+    softmax losses are constant) the mean squared error of its logit
+    against the label: the global batch's over ``mesh`` with H sharded."""
+    from tpuseg_torch.train.loss import _global, make_loss_fn
+
+    if name != "mse":
+        return make_loss_fn(name, mesh=mesh, spatial=mesh is not None)
+
+    def mse(logits, labels):
+        err = (logits[..., 0] - labels.to(logits.dtype)) ** 2
+        num, den = _global(mesh, True, err.sum(), err.new_full((), err.numel()))
+        return num / den
+
+    return mse
+
+
+def spatial_trainer(device, argv):
+    """A Trainer run through the entry point over a 2x2 mesh with the image
+    height sharded: its history, losses and digest; then the same flags at
+    height 15, which must raise before the model is built."""
+    from tpuseg_torch.main import main
+
+    tr = main(["--platform=cpu", *argv, "--train.checkpoint_dir="])
+    try:
+        main(["--platform=cpu", *argv, "--train.checkpoint_dir=", "--data.height=15"])
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    return dict(history=tr.history, losses=tr.step_losses, step=tr.step,
+                trained=params_digest(tr.model), spatial=tr.spatial, raised=raised)
+
+
 def fail_on_rank1(device):
     """Rank 1 raises; rank 0 waits in a collective that never completes."""
     mesh = create_mesh(2, 1)

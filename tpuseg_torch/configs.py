@@ -8,7 +8,8 @@ file drives both packages and ``to_dict`` of both is equal:
 
 ``mesh.data`` is the number of ranks of a process group that train one
 model (``torchrun``; ``tpuseg_torch.core.mesh``); ``mesh.spatial`` above
-one is not run yet. What the port does not run yet raises where it is used
+one also splits the image height over that many ranks (the spatial train
+step). What the port does not run yet raises where it is used
 (``Predictor``, ``build_model``, the Trainer), naming its ROADMAP item.
 """
 
@@ -139,8 +140,10 @@ class TrainConfig:
 @dataclass
 class MeshConfig:
     """The mesh of ranks (``tpuseg_torch.core.mesh``): ``data`` ranks train
-    one model on their rows of each global batch (-1: every rank of the
-    process group); ``spatial`` above one raises (ROADMAP.md A16)."""
+    one model on their rows of each global batch (-1: every rank that
+    ``spatial`` leaves); ``spatial`` ranks of each data row hold an H-slab
+    of its images, each layer fetching the rows it reads from the others
+    (``tpuseg_torch/parallel/spatial.py``)."""
 
     data: int = -1
     spatial: int = 1

@@ -27,6 +27,13 @@ gradient, so their backward passes it through (the sum) or keeps this
 rank's block of it (the gather), and no collective runs there. See
 ``tpuseg_torch/train/loss.py`` for the gradient convention.
 
+A step over a mesh with a spatial axis above one splits each image's
+height over the ranks of ``spatial_group`` (``batch_slice(...,
+spatial_dim=1)``); its layers fetch the rows they read from the ranks that
+own them over that group (``tpuseg_torch/parallel/spatial.py``), and its
+statistics, losses and gradients are summed over ``group``, the whole mesh
+(``axis_group(spatial=True)``).
+
 ``launch_local(fn, world, device)`` starts ``world`` ranks on this host
 (the ``spawn`` start method and a ``FileStore`` in a temporary directory,
 so no TCP port is taken) and returns each rank's result; its join has a

@@ -43,6 +43,17 @@ train mode convolves the fake-quantized input and weight in the compute
 dtype and adds the bias, as the JAX ``ConvBNAct._qat_conv``; its
 activation range spans the mesh that ``set_mesh`` gave it.
 
+Spatial mode (``tpuseg_torch/parallel/spatial.py``; the spatially sharded
+train step switches it on): every module takes this rank's H-slab of its
+input and returns its owned rows of its output. A ``Conv2d`` fetches the
+input rows its owned output rows read under its own padding (``dilation *
+(k - 1) // 2`` each side at stride 1; the rows ``2i - 1 .. 2i + 1`` of output
+row ``i`` for the 3x3 stride-2 convs, whose explicit padding is flax's
+``((1, 1), (1, 1))``) and convolves them with H padding 0, so zero rows
+appear only beyond the frame; ``MaxPool2d`` fetches its windows the same
+way. Train-mode BatchNorm sums its statistics over the whole mesh, and a
+QAT conv's activation range spans it too.
+
 Full int8 (``tpuseg_torch.export.int8_full.bind_quant``): a ``Conv2d``
 that carries calibrated ``int8`` data runs, in eval, as the JAX
 ``ConvBNAct._quantized_conv``: the input quantized with the per-tensor
@@ -66,6 +77,7 @@ from tpuseg_torch.core.mesh import all_reduce_
 from tpuseg_torch.ops.fake_quant import fake_quant_act, fake_quant_kernel
 from tpuseg_torch.ops.int8_conv import int8_conv, quantize_act
 from tpuseg_torch.ops.resize import upsample2x_bilinear
+from tpuseg_torch.parallel import spatial
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -120,8 +132,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        frame = spatial.active()
+        if frame is not None:
+            return self._global_forward(x, frame.mesh, frame.mesh.group)
         if self.mesh is not None and self.mesh.data_group is not None:
-            return self._global_forward(x)
+            return self._global_forward(x, self.mesh, self.mesh.data_group)
         if _frozen_stats[0]:
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
                                 self.weight, self.bias, True, self.momentum, self.eps)
@@ -136,8 +151,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_((moved - kept) * ((n - 1) / n) + kept)
         return y
 
-    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var, y = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.mesh)
+    def _global_forward(self, x: torch.Tensor, mesh, group) -> torch.Tensor:
+        mean, var, y = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, mesh, group)
         if not _frozen_stats[0]:
             with torch.no_grad():
                 m = self.momentum
@@ -151,7 +166,8 @@ class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm on the statistics of the global batch.
 
     Forward: per-channel sums of x and x^2 and the element count, ONE
-    all_reduce of them over the data axis, then flax's formulas: mean =
+    all_reduce of them over ``group`` (the data axis; the whole mesh when
+    H is sharded too), then flax's formulas: mean =
     E[x], var = max(E[x^2] - mean^2, 0), y = (x - mean) rsqrt(var + eps)
     gamma + beta. Backward: with x_hat the normalized input,
 
@@ -164,21 +180,22 @@ class _GlobalBatchNorm(torch.autograd.Function):
     the other parameter gradients in the train step."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, mesh):
+    def forward(ctx, x, weight, bias, eps, mesh, group):
         dims = [0, 2, 3]
         c = x.shape[1]
         stats = torch.cat([x.sum(dims), (x * x).sum(dims),
                            x.new_full((1,), x.numel() // c)])
-        all_reduce_(stats, mesh, mesh.data_group)
+        all_reduce_(stats, mesh, group)
         n = stats[2 * c]
         mean = stats[:c] / n
         var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
         invstd = torch.rsqrt(var + eps)
         shape = (1, c, 1, 1)
-        x_hat = (x - mean.view(shape)) * invstd.view(shape)
-        y = x_hat * weight.view(shape) + bias.view(shape)
+        # in place where a temporary would be a copy of the whole slab
+        x_hat = (x - mean.view(shape)).mul_(invstd.view(shape))
+        y = (x_hat * weight.view(shape)).add_(bias.view(shape))
         ctx.save_for_backward(x_hat, weight, invstd, n)
-        ctx.mesh = mesh
+        ctx.mesh, ctx.group = mesh, group
         ctx.mark_non_differentiable(mean, var)
         return mean, var, y
 
@@ -190,10 +207,9 @@ class _GlobalBatchNorm(torch.autograd.Function):
         shape = (1, c, 1, 1)
         local = torch.cat([dy.sum(dims), (dy * x_hat).sum(dims)])
         dbeta, dgamma = local[:c].clone(), local[c:].clone()
-        sums = all_reduce_(local, ctx.mesh, ctx.mesh.data_group)
-        dx = (weight * invstd).view(shape) * (
-            dy - (sums[:c] / n).view(shape) - x_hat * (sums[c:] / n).view(shape))
-        return dx, dgamma, dbeta, None, None
+        sums = all_reduce_(local, ctx.mesh, ctx.group)
+        dx = (dy - (sums[:c] / n).view(shape)).sub_(x_hat * (sums[c:] / n).view(shape))
+        return dx.mul_((weight * invstd).view(shape)), dgamma, dbeta, None, None, None
 
 
 def set_mesh(model: nn.Module, mesh) -> nn.Module:
@@ -246,16 +262,66 @@ class Conv2d(nn.Conv2d):
             if "bias" in q:
                 y = y + q["bias"].view(-1, 1, 1)
             return y.to(torch.float32 if dt is None else dt)
-        if self.qat and self.training:
-            x, w = fake_quant_act(x, self.mesh), fake_quant_kernel(self.weight)
-            if dt is not None:
-                x, w = x.to(dt), w.to(dt)
-            y = self._conv_forward(x, w, None)
-            return y if self.bias is None else y + self.bias.to(y.dtype).view(-1, 1, 1)
-        if dt is None:
+        frame = spatial.active()
+        qat = self.qat and self.training
+        if frame is None and not qat and dt is None:
             return super().forward(x)
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
-        return y if self.bias is None else y + self.bias.to(dt).view(-1, 1, 1)
+        w = self.weight
+        if qat:
+            mesh = self.mesh if frame is None else frame.mesh
+            x, w = fake_quant_act(x, mesh, spatial=frame is not None), fake_quant_kernel(w)
+        padding = self.padding
+        if frame is not None:
+            x, rows = self._fetch(frame, x)
+            padding = (0, self.padding[1])
+            if rows == 0:
+                return spatial.empty_rows((x, w), self._out_shape(x, rows),
+                                          x.dtype if dt is None else dt)
+        if dt is not None:
+            x, w = x.to(dt), w.to(dt)
+        if not qat and dt is None:
+            return F.conv2d(x, w, self.bias, self.stride, padding, self.dilation, self.groups)
+        y = F.conv2d(x, w, None, self.stride, padding, self.dilation, self.groups)
+        return y if self.bias is None else y + self.bias.to(y.dtype).view(-1, 1, 1)
+
+    def _fetch(self, frame, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """(the input rows this rank's owned output rows read, how many
+        output rows it owns) in the spatial mode."""
+        (k, _), (st, _), (p, _), (d, _) = (self.kernel_size, self.stride, self.padding,
+                                           self.dilation)
+        if k == 1 and st == 1 and p == 0:
+            return x, x.shape[2]            # row-local: nothing to fetch
+        h = spatial.layer_height(frame, x.shape[3])
+        h_out = (h + 2 * p - d * (k - 1) - 1) // st + 1
+        x, start, stop = spatial.fetch_window(
+            frame, x, h, h_out, lambda s, e: (s * st - p, (e - 1) * st - p + d * (k - 1) + 1))
+        return x, stop - start
+
+    def _out_shape(self, x: torch.Tensor, rows: int) -> Tuple[int, ...]:
+        (_, kw), (_, sw), (_, pw), (_, dw) = (self.kernel_size, self.stride, self.padding,
+                                              self.dilation)
+        return (x.shape[0], self.out_channels, rows, (x.shape[3] + 2 * pw - dw * (kw - 1) - 1)
+                // sw + 1)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` (no padding) that in the spatial mode pools this
+    rank's owned output rows from the input rows their windows read."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        frame = spatial.active()
+        if frame is None:
+            return super().forward(x)
+        k, st = self.kernel_size, self.stride
+        if self.padding or self.dilation != 1 or self.ceil_mode:
+            raise NotImplementedError("the spatial mode pools only unpadded windows")
+        h = spatial.layer_height(frame, x.shape[3])
+        x, start, stop = spatial.fetch_window(frame, x, h, (h - k) // st + 1,
+                                              lambda s, e: (s * st, (e - 1) * st + k))
+        if stop == start:
+            return spatial.empty_rows(x, (x.shape[0], x.shape[1], 0, (x.shape[3] - k) // st + 1),
+                                      x.dtype)
+        return super().forward(x)
 
 
 class ConvBNAct(nn.Sequential):
@@ -289,6 +355,9 @@ def upconcat_conv(conv: Conv2d, skip: torch.Tensor, x: torch.Tensor,
     (``blocks.py:182, 203, 212`` of the JAX package)."""
     if (conv.qat and training) or conv.int8 is not None:
         impl = "materialize"
+    if impl == "pallas" and not training and spatial.active() is not None:
+        raise ValueError("the fused decoder kernel runs whole frames: the spatial mode "
+                         "takes the subpixel or the materialized up-concat")
     if impl == "subpixel" or (impl == "pallas" and not training):
         from tpuseg_torch.ops.kernels import fused_upsample_concat_conv
         from tpuseg_torch.ops.subpixel import up_concat_conv_subpixel
@@ -351,7 +420,7 @@ class Down(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.mpconv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
+        self.mpconv = nn.Sequential(MaxPool2d(2), DoubleConv(cin, cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.mpconv(x)

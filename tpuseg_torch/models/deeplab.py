@@ -8,6 +8,11 @@ concatenates ``[low, up]`` with the 1/4 tap projected to 64 channels, runs
 two 3x3 refines and a biased 1x1 classifier, and upsamples x4. Every
 ``ConvBNAct`` is biased with ReLU, as the JAX package's defaults.
 
+In the spatial mode (``tpuseg_torch/parallel/spatial.py``) the image-level
+branch takes the frame's mean as a sum over the spatial group (fp32, its
+gradient summed back over the group) and runs its 1x1 branch whole on every
+spatial rank, with BatchNorm over the data axis alone.
+
 Module names follow flax's (``aspp.aspp_rate2``, ``aspp.project``,
 ``low_project``, ``refine1``, ``classifier``); the encoder keeps
 ``backbone.features.N``. Takes NCHW, returns NCHW float32 logits at the
@@ -25,6 +30,7 @@ from tpuseg_torch.core.dtypes import cast_to_output
 from tpuseg_torch.models.blocks import Conv2d, ConvBNAct
 from tpuseg_torch.models.fpn import up_pow2
 from tpuseg_torch.models.mobilenetv2 import MobileNetV2Encoder
+from tpuseg_torch.parallel import spatial
 
 
 class ASPP(nn.Module):
@@ -45,9 +51,16 @@ class ASPP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [self.aspp_conv1x1(x)]
         branches += [getattr(self, f"aspp_rate{r}")(x) for r in self.rates]
-        pooled = x.to(torch.promote_types(torch.float32, x.dtype)).mean(
-            dim=(2, 3), keepdim=True).to(x.dtype)
-        pooled = self.aspp_pool(pooled)
+        xf = x.to(torch.promote_types(torch.float32, x.dtype))
+        frame = spatial.active()
+        if frame is None:
+            pooled = xf.mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        else:
+            count = spatial.layer_height(frame, x.shape[3]) * x.shape[3]
+            pooled = (spatial.sum_over_spatial(xf.sum(dim=(2, 3), keepdim=True), frame.mesh)
+                      / count).to(x.dtype)
+        with spatial.replicated():
+            pooled = self.aspp_pool(pooled)
         branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
         return self.project(torch.cat(branches, dim=1))
 

@@ -8,6 +8,10 @@ by the cascaded 2x bilinear upsample and the four are summed; a biased
 1x1 classifier gives logits at 1/4, upsampled x4 the same way. Every conv
 of the decoder is biased, as the JAX package's ``ConvBNAct`` default.
 
+In the spatial mode (``tpuseg_torch/parallel/spatial.py``) the nearest x2
+takes its owned rows of the output from the input rows they repeat, fetched
+where a layer's ownership does not split evenly.
+
 Module names follow flax's (``lat5``, ``smooth2``, ``head3``,
 ``classifier``), so ``state_dict_from_flax`` maps names mechanically; the
 encoder keeps ``backbone.features.N``. Takes NCHW, returns NCHW float32
@@ -23,6 +27,7 @@ from tpuseg_torch.core.dtypes import cast_to_output
 from tpuseg_torch.models.blocks import Conv2d, ConvBNAct, nchw
 from tpuseg_torch.models.mobilenetv2 import MobileNetV2Encoder
 from tpuseg_torch.ops.resize import up_pow2_bilinear
+from tpuseg_torch.parallel import spatial
 
 
 def up_pow2(x: torch.Tensor, times: int) -> torch.Tensor:
@@ -31,7 +36,15 @@ def up_pow2(x: torch.Tensor, times: int) -> torch.Tensor:
 
 
 def up2x_nearest(x: torch.Tensor) -> torch.Tensor:
-    """Exact 2x nearest upsample of NCHW features: each pixel repeated."""
+    """Exact 2x nearest upsample of NCHW features: each pixel repeated (in
+    the spatial mode, this rank's owned rows of the output)."""
+    frame = spatial.active()
+    if frame is not None:
+        h = spatial.layer_height(frame, x.shape[3])
+        x, start, stop = spatial.fetch_window(frame, x, h, 2 * h,
+                                              lambda s, e: (s // 2, (e - 1) // 2 + 1))
+        x = x.repeat_interleave(2, dim=2)[:, :, start % 2:start % 2 + stop - start]
+        return x.repeat_interleave(2, dim=3)
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 

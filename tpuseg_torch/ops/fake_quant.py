@@ -8,9 +8,9 @@ parameters or buffers, so the state_dict is that of a run without QAT;
 eval is never quantized.
 
 - ``fake_quant_act``: per-tensor, scale = max(absmax, 1e-8) / 127, so
-  nothing clips. Over a mesh (``mesh``, its data axis) the absmax is the
-  global batch's, one MAX all_reduce, as under the JAX package's
-  data-sharded jit.
+  nothing clips. Over a mesh (``mesh``, its data axis; the whole mesh with
+  ``spatial``, where each rank holds an H-slab) the absmax is the global
+  batch's, one MAX all_reduce, as under the JAX package's sharded jit.
 - ``fake_quant_kernel``: per output channel (dim 0 of an OIHW weight, the
   last axis of JAX's HWIO one); an all-zero channel gets scale 1.0.
 
@@ -48,20 +48,22 @@ from tpuseg_torch.core.mesh import all_reduce_
 INV_LEVELS = 1.0 / 127.0
 
 
-def act_scale(xf: torch.Tensor, mesh=None) -> torch.Tensor:
+def act_scale(xf: torch.Tensor, mesh=None, spatial: bool = False) -> torch.Tensor:
     """The int8 step of the float32 activation ``xf``: max(absmax, 1e-8) *
-    float32(1/127), its absmax the global batch's over ``mesh``'s data axis."""
-    absmax = xf.detach().abs().amax()
-    if mesh is not None and mesh.data_group is not None:
-        all_reduce_(absmax, mesh, mesh.data_group, dist.ReduceOp.MAX)
+    float32(1/127), its absmax the global batch's over ``mesh``'s data axis
+    (the whole mesh with ``spatial``)."""
+    absmax = xf.detach().abs().amax() if xf.numel() else xf.new_zeros(())
+    if mesh is not None and mesh.axis_group(spatial) is not None:
+        all_reduce_(absmax, mesh, mesh.axis_group(spatial), dist.ReduceOp.MAX)
     return torch.clamp(absmax, min=1e-8) * INV_LEVELS
 
 
-def fake_quant_act(x: torch.Tensor, mesh=None) -> torch.Tensor:
+def fake_quant_act(x: torch.Tensor, mesh=None, spatial: bool = False) -> torch.Tensor:
     """Per-tensor symmetric int8 fake-quant with the absmax range (of the
-    global batch over ``mesh``'s data axis)."""
+    global batch over ``mesh``'s data axis, or the whole mesh with
+    ``spatial``)."""
     xf = x.to(torch.float32)
-    scale = act_scale(xf, mesh)
+    scale = act_scale(xf, mesh, spatial)
     q = torch.round(xf / scale) * scale
     return (xf + (q - xf).detach()).to(x.dtype)
 

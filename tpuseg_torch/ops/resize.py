@@ -18,6 +18,12 @@ Every path is two ``index_select`` gathers and a lerp per axis. The taps are
 computed in float64 with numpy and rounded to float32, as in the JAX
 package's ``_bilinear_taps``. No ``F.interpolate``: torch derives its source index
 from the scale factor, which for odd ratios is not the size ratio.
+
+In the spatial mode (``tpuseg_torch/parallel/spatial.py``) the x2 upsample
+takes a rank's H-slab and returns its owned rows of the output layer: the
+global taps' rows for those rows, applied to the input rows they read
+(fetched from the ranks that own them), so each output is the same 2-tap
+sum, in the same order, as unsharded.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from tpuseg_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,11 +145,43 @@ def upsample2x_bilinear(x: torch.Tensor, align_corners: bool = False,
     (bf16 for the reduced-traffic head) is the storage dtype of the
     contraction, as the JAX package's: x, the taps and each pass's result
     rounded to it, each 2-tap sum taken in float32; the result is in it.
-    None: at least float32, and ``x.dtype`` back."""
+    None: at least float32, and ``x.dtype`` back. In the spatial mode, x is
+    an H-slab (see the module)."""
+    frame = spatial.active()
+    if frame is None:
+        if compute_dtype is None:
+            return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], align_corners)
+        y = x.to(compute_dtype)
+        y = _contract_rounded(y, x.ndim - 3, 2 * x.shape[-3], align_corners, compute_dtype)
+        return _contract_rounded(y, x.ndim - 2, 2 * x.shape[-2], align_corners, compute_dtype)
+    return upsample2x_rows(frame, x, spatial.layer_height(frame, x.shape[-2]), align_corners,
+                           compute_dtype)
+
+
+def upsample2x_rows(frame, x: torch.Tensor, h: int, align_corners: bool = False,
+                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``upsample2x_bilinear`` of this rank's slab ``x`` of a layer ``h``
+    rows high in the spatial ``frame``: its owned rows of the 2h-row
+    output."""
+    axis = x.ndim - 3
     if compute_dtype is None:
-        return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], align_corners)
-    y = x.to(compute_dtype)
-    y = _contract_rounded(y, x.ndim - 3, 2 * x.shape[-3], align_corners, compute_dtype)
+        y = x.to(torch.promote_types(torch.float32, x.dtype))
+        taps = _tap_tensors(h, 2 * h, align_corners, x.device, y.dtype)
+    else:
+        y = x.to(compute_dtype).to(torch.float32)
+        taps = _rounded_taps(h, 2 * h, align_corners, x.device, compute_dtype)
+    lo64, hi64, _ = _taps64(h, 2 * h, align_corners)
+    y, start, stop = spatial.fetch_window(
+        frame, y, h, 2 * h, lambda s, e: (int(lo64[s]), int(hi64[e - 1]) + 1), dim=axis)
+    first = int(lo64[start]) if stop > start else 0
+    lo, hi, w_lo, w_hi = (t[start:stop] for t in taps)
+    shape = [1] * x.ndim
+    shape[axis] = stop - start
+    y = (y.index_select(axis, lo - first) * w_lo.reshape(shape)
+         + y.index_select(axis, hi - first) * w_hi.reshape(shape))
+    if compute_dtype is None:
+        return _interp_axis(y, x.ndim - 2, 2 * x.shape[-2], align_corners).to(x.dtype)
+    y = y.to(compute_dtype)
     return _contract_rounded(y, x.ndim - 2, 2 * x.shape[-2], align_corners, compute_dtype)
 
 

@@ -13,8 +13,9 @@ step (``train/train_step.py``), before the student's loss and outside
 autograd; on the card it is part of the captured step, the teacher's
 parameters and buffers static tensors of the graph.
 
-Over a mesh (``mesh``, its data axis) the KD mean is the global batch's:
-its sum and count are all-reduced with the other losses' global sums
+Over a mesh (``mesh``, its data axis; the whole mesh with ``spatial``,
+where each rank holds an H-slab) the KD mean is the global batch's: its
+sum and count are all-reduced with the other losses' global sums
 (``train/loss.py``'s convention).
 """
 
@@ -37,19 +38,19 @@ def _kl(student_logits: torch.Tensor, teacher_logits: torch.Tensor, t: float) ->
 
 
 def kd_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
-               temperature: float = 2.0, mesh=None) -> torch.Tensor:
+               temperature: float = 2.0, mesh=None, spatial: bool = False) -> torch.Tensor:
     """Mean per-pixel T^2 * KL(softmax(teacher/T) || softmax(student/T)) of
     [B, H, W, C] logits (the global batch's over ``mesh``)."""
     t = float(temperature)
     kl = _kl(student_logits, teacher_logits, t)
     if mesh is None:
         return torch.mean(kl) * (t * t)
-    num, den = _global(mesh, False, torch.sum(kl), kl.new_full((), kl.numel()))
+    num, den = _global(mesh, spatial, torch.sum(kl), kl.new_full((), kl.numel()))
     return (num / den) * (t * t)
 
 
 def make_distill_loss(base_loss: Callable, alpha: float, temperature: float,
-                      ignore_index: int = -1, mesh=None) -> Callable:
+                      ignore_index: int = -1, mesh=None, spatial: bool = False) -> Callable:
     """(student_logits, labels, teacher_logits) -> the combined loss.
 
     ``alpha`` in (0, 1], else ValueError; 1 skips the base loss.
@@ -64,10 +65,10 @@ def make_distill_loss(base_loss: Callable, alpha: float, temperature: float,
         if ignore_index >= 0:
             kl = _kl(logits, teacher_logits, t)
             valid = (labels != ignore_index).to(kl.dtype)
-            num, den = _global(mesh, False, torch.sum(kl * valid), torch.sum(valid))
+            num, den = _global(mesh, spatial, torch.sum(kl * valid), torch.sum(valid))
             kd = (num / torch.clamp(den, min=1.0)) * (t * t)
         else:
-            kd = kd_kl_loss(logits, teacher_logits, t, mesh)
+            kd = kd_kl_loss(logits, teacher_logits, t, mesh, spatial)
         if a >= 1.0:
             return kd
         return (1.0 - a) * base_loss(logits, labels) + a * kd

@@ -143,13 +143,15 @@ class Optimizer:
         return [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
-    def sum_grads(self, mesh) -> None:
-        """Sum every parameter's gradient over the mesh's data axis: ONE
-        all_reduce of them flattened, before the clip and the update, so
-        the clip sees the global norm and every rank applies one update.
-        Each rank's gradient is its part (see ``train/loss.py``)."""
+    def sum_grads(self, mesh, spatial: bool = False) -> None:
+        """Sum every parameter's gradient over the mesh's data axis (the
+        whole mesh with ``spatial``): ONE all_reduce of them flattened,
+        before the clip and the update, so the clip sees the global norm
+        and every rank applies one update. Each rank's gradient is its part
+        (see ``train/loss.py``)."""
         grads = self.grads()
-        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh, mesh.data_group)
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh,
+                           mesh.axis_group(spatial))
         for p, part in zip(self.params, flat.split([g.numel() for g in grads])):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -33,6 +33,20 @@ and the EMA run alike on every rank, so the parameters stay equal there.
 Such a step runs uncaptured: its collectives sync the host with the card
 (gloo stages through host memory), which a CUDA graph cannot hold. The
 eval step evaluates this rank's rows and sums its outputs over the ranks.
+
+``spatial`` (a mesh with a spatial axis above one; the JAX step's
+``spatial=True``) also splits the image height over the mesh's "spatial"
+axis after the augment: each rank keeps its rows and its H-slab
+(``batch_slice(..., spatial_dim=1)``, the counterpart of
+``_spatial_constraint``) and runs the forward and the backward in the
+spatial mode (``tpuseg_torch/parallel/spatial.py``), where every layer
+computes its owned rows and fetches the rows it reads from their owners,
+as GSPMD's halo exchanges do. BatchNorm statistics, the loss's sums and
+the gradients' all_reduce span the whole mesh; the teacher's forward runs
+on the slab too. The step computes the unsharded step up to the order of
+float sums. The eval step stays sharded on the batch alone, as JAX's: the
+spatial ranks of one data row evaluate the same rows, and the sums run
+over the data axis, so none is counted twice.
 """
 
 from __future__ import annotations
@@ -50,6 +64,7 @@ from tpuseg_torch.core.mesh import all_reduce_, batch_slice
 from tpuseg_torch.data.augment import normalize_images
 from tpuseg_torch.models.blocks import frozen_running_stats
 from tpuseg_torch.ops.resize import resize_bilinear
+from tpuseg_torch.parallel.spatial import spatial_mode
 from tpuseg_torch.train.loss import cross_entropy_loss
 from tpuseg_torch.train.metrics import confusion_matrix
 from tpuseg_torch.train.optim import Optimizer
@@ -106,16 +121,18 @@ def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Cal
                    augment_fn: Optional[Callable] = None,
                    generator: Optional[torch.Generator] = None, remat: bool = False,
                    debug_nans: bool = False, mesh=None, grads_bf16: bool = False,
-                   teacher_fn: Optional[Callable] = None) -> Callable:
+                   teacher_fn: Optional[Callable] = None, spatial: bool = False) -> Callable:
     """One uncaptured step, ``(images, labels) -> loss`` (a detached device
     scalar). With ``augment_fn`` it takes uint8 images and masks and
     augments them first, drawing from ``generator``. Over ``mesh`` it
-    takes the global batch and keeps this rank's rows after the augment;
-    ``loss_fn`` must be built for the same mesh. With ``teacher_fn`` the
-    loss takes the teacher's logits as a third argument."""
+    takes the global batch and keeps this rank's rows after the augment
+    (and its H-slab with ``spatial``); ``loss_fn`` must be built for the
+    same mesh (and ``spatial``). With ``teacher_fn`` the loss takes the
+    teacher's logits as a third argument."""
     mesh = _active(mesh)
     if mesh is not None and loss_fn is None:
         raise ValueError("a step over a mesh needs a loss_fn built for it (make_loss_fn(mesh=))")
+    spatial = spatial and mesh is not None and mesh.spatial > 1
     compute_loss = loss_fn or cross_entropy_loss
     forward = _train_forward(model, remat)
     named = list(model.named_parameters())
@@ -123,18 +140,22 @@ def make_step_body(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Cal
     def body(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         if augment_fn is not None:
             images, labels = augment_fn(images, labels, generator)
+        frame = contextlib.nullcontext()
         if mesh is not None:
-            rows = batch_slice(mesh, images.shape[0])[0]
-            images, labels = images[rows], labels[rows]
-        teacher_logits = None if teacher_fn is None else teacher_fn(images)
-        model.train()
-        logits = forward(images)
-        loss = (compute_loss(logits, labels) if teacher_logits is None
-                else compute_loss(logits, labels, teacher_logits))
-        optimizer.zero_grad()
-        loss.backward()
+            index = batch_slice(mesh, images.shape[:2], 1 if spatial else None)
+            if spatial:
+                frame = spatial_mode(mesh, images.shape[1], images.shape[2])
+            images, labels = images[index], labels[index]
+        with frame:
+            teacher_logits = None if teacher_fn is None else teacher_fn(images)
+            model.train()
+            logits = forward(images)
+            loss = (compute_loss(logits, labels) if teacher_logits is None
+                    else compute_loss(logits, labels, teacher_logits))
+            optimizer.zero_grad()
+            loss.backward()
         if mesh is not None:
-            optimizer.sum_grads(mesh)
+            optimizer.sum_grads(mesh, spatial)
         if debug_nans:
             _check_finite(loss, named)
         grads = None
@@ -150,7 +171,7 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Ca
                     augment_fn: Optional[Callable] = None,
                     generator: Optional[torch.Generator] = None, remat: bool = False,
                     debug_nans: bool = False, mesh=None, grads_bf16: bool = False,
-                    teacher_fn: Optional[Callable] = None) -> Callable:
+                    teacher_fn: Optional[Callable] = None, spatial: bool = False) -> Callable:
     """The step: ``(images f32 [B,H,W,3], labels [B,H,W]) -> {"loss"}``; or,
     with ``augment_fn``, ``(images u8, masks u8) -> {"loss"}`` with the
     augmentation (drawing from ``generator``) fused in front. ``loss_fn``
@@ -160,10 +181,11 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Optional[Ca
     mode does) and raises FloatingPointError on a loss or gradient that is
     not finite. The loss comes back as a device tensor, overwritten by the
     next call: reading it is the caller's choice of when to sync. Over
-    ``mesh`` the step is the global one (see the module), uncaptured.
-    ``teacher_fn`` (``distill.make_teacher_fn``) distills from a teacher."""
+    ``mesh`` the step is the global one (see the module), uncaptured, with
+    the image height sharded too under ``spatial``. ``teacher_fn``
+    (``distill.make_teacher_fn``) distills from a teacher."""
     body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans,
-                          mesh, grads_bf16, teacher_fn)
+                          mesh, grads_bf16, teacher_fn, spatial)
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {"loss": body(images, labels)}
@@ -179,13 +201,15 @@ def make_train_multi_step(k: int, model: nn.Module, optimizer: Optimizer,
                           generator: Optional[torch.Generator] = None, remat: bool = False,
                           debug_nans: bool = False, mesh=None,
                           grads_bf16: bool = False,
-                          teacher_fn: Optional[Callable] = None) -> Callable:
+                          teacher_fn: Optional[Callable] = None,
+                          spatial: bool = False) -> Callable:
     """K steps per dispatch, the port of ``make_train_multi_step``:
     ``(images [K, B, ...], labels [K, B, ...]) -> {"loss": [K]}``, the same
     arithmetic as K calls of the single step, captured as one graph (over
-    ``mesh``, K global steps, uncaptured)."""
+    ``mesh``, K global steps, uncaptured; H sharded too under
+    ``spatial``)."""
     body = make_step_body(model, optimizer, loss_fn, augment_fn, generator, remat, debug_nans,
-                          mesh, grads_bf16, teacher_fn)
+                          mesh, grads_bf16, teacher_fn, spatial)
 
     def multi_step(images: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         if images.shape[0] != k or labels.shape[0] != k:

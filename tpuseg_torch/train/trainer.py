@@ -37,7 +37,10 @@ rows, the loss, BatchNorm statistics and gradients are the global
 batch's, and the parameters, broadcast from rank 0 after init and after
 ``init_checkpoint``, stay equal on every rank (``train/train_step.py``).
 Rank 0 alone writes checkpoints, ``best.json`` and the epoch records;
-every rank resumes from them. Such steps run uncaptured.
+every rank resumes from them. Such steps run uncaptured. ``--mesh.spatial``
+above one also shards the image height over the mesh's spatial axis, as
+the JAX Trainer does (the spatial train step of ``train/train_step.py``;
+``data.height`` must divide by it); eval stays sharded on the batch.
 
 The device is the CUDA card unless the caller passes ``device="cpu"``;
 with no card and no such request the constructor raises. What the port
@@ -84,20 +87,12 @@ def _loss_list(loss: torch.Tensor) -> List[float]:
     return np.atleast_1d(loss.cpu().numpy()).tolist()
 
 
-def _unported_options(cfg: Config) -> List[tuple]:
-    """(is set, what, ROADMAP item) for each option the port cannot run yet."""
-    return [
-        (cfg.mesh.spatial > 1, f"the spatially-sharded train step (mesh spatial="
-         f"{cfg.mesh.spatial})", "A16, spatial train step"),
-    ]
-
-
 def trainer_mesh(cfg: Config):
-    """The Trainer's mesh: None for one process (``--mesh.data`` -1 or 1
-    and no process group, or a group of one rank), else ``create_mesh``
-    over the process group, which raises when the ranks do not make
-    ``data x spatial``."""
-    if not dist.is_initialized() and cfg.mesh.data in (-1, 1):
+    """The Trainer's mesh: None for one process (``--mesh.data`` -1 or 1,
+    ``--mesh.spatial`` 1 and no process group, or a group of one rank),
+    else ``create_mesh`` over the process group, which raises when the
+    ranks do not make ``data x spatial``."""
+    if not dist.is_initialized() and cfg.mesh.data in (-1, 1) and cfg.mesh.spatial <= 1:
         return None
     mesh = create_mesh(cfg.mesh.data, cfg.mesh.spatial)
     return mesh if mesh.size > 1 else None
@@ -108,9 +103,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, combined: Optional[CombinedDataset] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        for flag, what, item in _unported_options(cfg):
-            if flag:
-                raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = trainer_mesh(cfg)
@@ -127,6 +119,13 @@ class Trainer:
             raise ValueError(
                 f"batch_size {cfg.train.batch_size} must be divisible by the "
                 f"mesh data axis ({self.mesh.shape['data']} devices)")
+        # mesh.spatial > 1 shards the H dim across the "spatial" axis —
+        # checked BEFORE model init so an indivisible height fails fast
+        self.spatial = self.mesh is not None and self.mesh.shape["spatial"] > 1
+        if self.spatial and cfg.data.height % self.mesh.shape["spatial"] != 0:
+            raise ValueError(
+                f"data.height {cfg.data.height} must be divisible by the "
+                f"mesh spatial axis ({self.mesh.shape['spatial']})")
         validate_input_size(cfg.model.name, cfg.data.height, cfg.data.width)
         self.combined = combined
         log.info("%s", combined.summary())
@@ -168,7 +167,8 @@ class Trainer:
                 self.loss_fn, self.teacher_fn = self._build_distillation(self.loss_fn)
         step_kw = dict(loss_fn=self.loss_fn, augment_fn=self.augment,
                        generator=self.aug_generator, remat=t.remat, debug_nans=t.debug_nans,
-                       mesh=self.mesh, grads_bf16=t.grads_bf16, teacher_fn=self.teacher_fn)
+                       mesh=self.mesh, grads_bf16=t.grads_bf16, teacher_fn=self.teacher_fn,
+                       spatial=self.spatial)
         if self.steps_per_dispatch > 1:
             self.train_step = make_train_multi_step(self.steps_per_dispatch, self.model,
                                                     self.optimizer, **step_kw)
@@ -263,7 +263,7 @@ class Trainer:
             t.loss, class_weights=weights, label_smoothing=t.label_smoothing,
             focal_gamma=t.focal_gamma, dice_weight=t.dice_weight,
             ignore_index=t.ignore_index if t.ignore_index >= 0 else None,
-            lovasz_bins=t.lovasz_bins, mesh=self.mesh)
+            lovasz_bins=t.lovasz_bins, mesh=self.mesh, spatial=self.spatial)
 
     def _build_distillation(self, loss_fn):
         """The frozen teacher and the combined loss (``train.distill_*``),
@@ -311,7 +311,7 @@ class Trainer:
                  t.distill_checkpoint, t.distill_alpha, t.distill_temperature)
         return (make_distill_loss(loss_fn or cross_entropy_loss, t.distill_alpha,
                                   t.distill_temperature, ignore_index=t.ignore_index,
-                                  mesh=self.mesh),
+                                  mesh=self.mesh, spatial=self.spatial),
                 make_teacher_fn(self.teacher))
 
     def _load_init_checkpoint(self, path: str) -> None:
