@@ -218,7 +218,10 @@ printing one JSON line; any failure raises and exits nonzero:
              ``--export.format=onnx`` and ``run_model`` on the card
              (check_model empty, maps >= 99.9% of the live model's); (5)
              ``tpuseg_torch.tools.eval_quantized`` on 64 scenes (every
-             variant present, bn_folded agreement >= 0.999). On the seeded
+             variant present, bn_folded agreement >= 0.999); (6)
+             ``--export.format=savedmodel``, which needs TensorFlow: on the
+             card's host, which has none, exit 1 naming it and nothing
+             written (where TF imports, exit 0, valid). On the seeded
              weights fp32 rounding moves logits by 1e-5-1e-4 between two
              computations of the same function and int8 maps agree with
              fp32 on ~60%, so convert's bounds (int8 agreement 0.9, round
@@ -226,6 +229,31 @@ printing one JSON line; any failure raises and exits nonzero:
              fail there in both packages: each verdict is recorded as the
              tool's finding, not held as a check of the port. Its
              argmax_colorize launches join the summary's counts.
+11. ablate — the flagship's per-stage device times:
+             ``tpuseg_torch.tools.ablate_forward`` at its defaults (bf16,
+             batch 64, 512x512, chain 16) with the subpixel decoder and the
+             materialized one, ``ablate_train`` at its defaults (bf16,
+             batch 64, 256x128, chain 8) and in fp32; each row one CUDA
+             graph replayed between CUDA events; the rows, their deltas
+             and images/s; every row's captured value bit-equal to the
+             same prefix run under ``graphs.eager()`` (deterministic
+             algorithms; ``full``, the real train step, as 3 captured steps
+             against 3 eager ones from the same seed: losses and the whole
+             state_dict bit-equal);
+12. sweep  — the two Lovász kernels against their plain versions at
+             the protocol's [10, 64*128*256] (8x batch 8's pixels a
+             block), then ``tpuseg_torch.tools.convergence_sweep`` on a
+             two-row grid (ce, lovasz) at --epochs 1 on the protocol's
+             base config (bf16, batch 64, 2276 synthetic scenes, 8 steps a
+             dispatch), counted from 0: both records ok with a finite val mIoU, each Lovász kernel
+             launched once a step of the lovasz run and never in the ce
+             run (its launches join the summary's counts), then the same
+             command again skipping both runs.
+
+The port's ``first_contact``, ``export_synthetic_dataset`` and
+``make_demo_video`` tools read or write image and video files with cv2,
+which the card's host does not have; no phase runs them (their CPU tests
+do, where cv2 is).
 
 The serving phases run as on a host without cv2, the path the port is
 built for: a meta-path finder refuses cv2 for the whole run (the device
@@ -237,8 +265,9 @@ Then the kernels summary line, nvidia-smi's line, and, last, the result
 line {"ok": true, "device": {...}}. A kernel's ``launches`` there are its
 launches on the serving (serve and video phases) or training path (train,
 train_packed, train_contact's QAT and distilled runs and its 3 steps on
-each rank, the mesh phase's 20 steps on each rank, and the spatial
-phase's 20 steps on each of its two ranks and 3 on each of its four);
+each rank, the mesh phase's 20 steps on each rank, the spatial phase's
+20 steps on each of its two ranks and 3 on each of its four, and the
+sweep's lovasz run);
 fused_inverted_residual runs on
 no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
 tpuseg_torch package beside this file, it exits nonzero and prints no
@@ -630,12 +659,12 @@ def phase_kernels():
     return out
 
 
-def lovasz_planes(seed: int):
-    """(errors, fg), each f32 [C, P] contiguous, as one training batch gives
+def lovasz_planes(seed: int, p: int = LOVASZ_SHAPE[1]):
+    """(errors, fg), each f32 [C, p] contiguous, as one training batch gives
     them: |onehot - softmax| of seeded logits against seeded labels, with
     257 pixels at e = 1.0 exactly on their label's class (and 0 on the
     others) and 43 more at e = 0 on every class."""
-    c, p = LOVASZ_SHAPE
+    c = LOVASZ_SHAPE[0]
     g = make_generator(seed, "cuda")
     logits = torch.randn((p, c), generator=g, device="cuda") * 2.0
     labels = torch.randint(0, c, (p,), generator=g, device="cuda")
@@ -2862,14 +2891,14 @@ def combined_rank(device) -> dict:
     return out
 
 
-def lovasz_slab_check(parts: int) -> dict:
-    """lovasz_histograms and lovasz_lookup at one rank's slab, [C, P/parts]
-    (another plan than the whole batch's), against their plain versions:
-    counts, fg sums and w bit-equal, error sums within ERRSUM_RTOL of f64."""
+def lovasz_shape_check(p: int, seed: int, what: str) -> dict:
+    """lovasz_histograms and lovasz_lookup at [C, p], a shape a path gives
+    them (its own pixels a block), against their plain versions: counts, fg sums and w bit-equal, error sums within
+    ERRSUM_RTOL of f64."""
     from tpuseg_torch.ops import lovasz
 
-    c, p = LOVASZ_SHAPE
-    e, fg = (t[:, :p // parts].contiguous() for t in lovasz_planes(700))
+    c = LOVASZ_SHAPE[0]
+    e, fg = lovasz_planes(seed, p)
     hk, hp = lovasz.lovasz_histograms(e, fg), lovasz.lovasz_histograms_plain(e, fg)
     h64 = lovasz.lovasz_histograms_plain(e.double(), fg.double())
     coef, _ = lovasz.coefficients(*hp)
@@ -2878,10 +2907,11 @@ def lovasz_slab_check(parts: int) -> dict:
     err = (hk[2] - hp[2]).abs()
     if not (torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1]) and torch.equal(wk, wp)) \
             or bool((err > ERRSUM_RTOL * h64[2].abs() + 1e-7).any()):
-        raise AssertionError(f"spatial: the Lovász kernels at the slab's [{c}, {p // parts}] "
-                             f"differ from their plain versions (error sums {float(err.max())})")
-    return {"shape": [c, p // parts], "counts_fg_w_bit_equal": True,
-            "errsum_max_abs_err": float(err.max())}
+        raise AssertionError(f"{what}: the Lovász kernels at [{c}, {p}] differ from their "
+                             f"plain versions (error sums {float(err.max())})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"shape": [c, p], "blocks_per_class": lovasz.lovasz_hist_plan(c, p, sms),
+            "counts_fg_w_bit_equal": True, "errsum_max_abs_err": float(err.max())}
 
 
 def spatial_vs_one(ranks_ab, one: dict, slabs, what: str) -> dict:
@@ -2915,7 +2945,8 @@ def phase_spatial(packed: str) -> dict:
     """The spatially sharded train step on the card (see the module)."""
     from tpuseg_torch.core.mesh import launch_local
 
-    out = {"phase": "spatial", "lovasz_slab": lovasz_slab_check(2)}
+    out = {"phase": "spatial",
+           "lovasz_slab": lovasz_shape_check(LOVASZ_SHAPE[1] // 2, 700, "spatial")}
     rng = np.random.RandomState(SEED)
     logits = (rng.randn(BATCH, *MODEL_HW, CLASSES) * 2).astype(np.float32)
     targets = rng.randint(0, CLASSES, (BATCH, *MODEL_HW))
@@ -3667,6 +3698,25 @@ def export_eval_quantized(pth: Path) -> dict:
                                     "is the tool's finding, not a check of the port"}
 
 
+def export_tf(pth: Path, tmp: Path) -> dict:
+    """``convert --export.format=savedmodel`` on this host: it needs
+    TensorFlow, which the card's host does not have, so it must exit 1
+    naming TensorFlow and write nothing (where TF imports: exit 0 with its
+    round trip valid)."""
+    from tpuseg_torch import convert
+
+    has_tf = importlib.util.find_spec("tensorflow") is not None
+    path = tmp / "savedmodel"
+    rc, text = run_tool(convert.main, [f"--export.checkpoint={pth}",
+                                       f"--export.output={path}",
+                                       "--export.format=savedmodel"] + PLAIN_FLAGS)
+    ok = (rc == 0 and "Export is valid!" in text) if has_tf else \
+        (rc == 1 and "TensorFlow" in text and not path.exists())
+    if not ok:
+        raise AssertionError(f"export: savedmodel with TensorFlow {has_tf}: rc {rc}: {text}")
+    return {"tensorflow": has_tf, "rc": rc, "lines": text.strip().splitlines()}
+
+
 def phase_export(pth: Path, frames) -> dict:
     """Slice 12: int8 calibration and serving, the torch.export artifact,
     ONNX and eval_quantized, on the flagship's seeded weights."""
@@ -3675,13 +3725,185 @@ def phase_export(pth: Path, frames) -> dict:
         for part, run in (("int8", lambda: export_int8(pth, Path(tmp), frames)),
                           ("artifact", lambda: export_artifact(pth, Path(tmp), frames)),
                           ("onnx", lambda: export_onnx_check(pth, Path(tmp), frames)),
-                          ("eval_quantized", lambda: export_eval_quantized(pth))):
+                          ("eval_quantized", lambda: export_eval_quantized(pth)),
+                          ("savedmodel", lambda: export_tf(pth, Path(tmp)))):
             t0 = time.perf_counter()
             out[part] = run()
             walls[part] = time.perf_counter() - t0
     out["wall_s"] = walls
     out["launches"] = {k: out["int8"]["serve"]["launches"][k]
                        + out["artifact"]["serve"]["launches"][k] for k in kernels.launches}
+    emit(out)
+    return out
+
+
+# the ablate phase: each tool at its defaults (ablate_forward: batch 64,
+# 512x512, chain 16, bf16; ablate_train: batch 64, 256x128, chain 8) and
+# one other setting (the materialized decoder; fp32)
+ABLATE_FORWARD = {"batch": 64, "size": 512, "chain": 16}
+ABLATE_TRAIN = {"batch": 64, "height": 128, "width": 256, "chain": 8}
+ABLATE_FULL_CALLS = 3
+ABLATE_DEVICE = "cuda"
+
+
+def stage_deltas(rows: dict) -> dict:
+    """Each row's time less the row before it (the nested prefixes)."""
+    names = list(rows)
+    return {f"{b} - {a}": rows[b] - rows[a] for a, b in zip(names, names[1:])}
+
+
+@contextlib.contextmanager
+def deterministic():
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def captured_vs_eager(fn, args, name: str) -> bool:
+    """A fresh capture of ``fn`` (a row that leaves the model as it was),
+    replayed once, bit-equal to ``fn`` under ``graphs.eager()``, both under
+    deterministic algorithms."""
+    with deterministic():
+        step = graphs.Captured(fn, name)
+        step(*args)
+        got = step(*args).clone()
+        with graphs.eager():
+            want = fn(*args)
+    return bool(torch.equal(got, want))
+
+
+def ablate_full_vs_eager(dtype: str) -> bool:
+    """The ``full`` row (the real train step, which moves the model): two
+    models from one seed, ABLATE_FULL_CALLS steps captured against as many
+    under ``graphs.eager()``, under deterministic algorithms: every loss and
+    every final parameter and BatchNorm statistic bit-equal."""
+    from tpuseg_torch.tools import ablate_train
+
+    a = ABLATE_TRAIN
+    runs = []
+    with deterministic():
+        for eager in (False, True):
+            model, x, y = ablate_train.build(a["batch"], a["height"], a["width"], dtype,
+                                             ABLATE_DEVICE)
+            step = ablate_train.full_step(model)
+            with graphs.eager() if eager else contextlib.nullcontext():
+                losses = [step(x, y)["loss"].clone() for _ in range(ABLATE_FULL_CALLS)]
+            runs.append((losses, {k: t.clone() for k, t in model.state_dict().items()}))
+            del model, step
+    (la, sa), (lb, sb) = runs
+    return (all(torch.equal(p, q) for p, q in zip(la, lb))
+            and all(torch.equal(sa[k], sb[k]) for k in sa))
+
+
+def phase_ablate() -> dict:
+    """The port's per-stage device times: ``tpuseg_torch.tools.ablate_forward``
+    at its defaults and with the materialized decoder, ``ablate_train`` at
+    its defaults (bf16) and in fp32; each row a CUDA graph replayed between
+    CUDA events, and each row's captured value bit-equal to the same prefix
+    run eager (see captured_vs_eager, ablate_full_vs_eager)."""
+    from tpuseg_torch.tools import ablate_forward, ablate_train
+
+    out = {"phase": "ablate", "forward": {}, "train": {}}
+    f = ABLATE_FORWARD
+    model, x = ablate_forward.build(f["batch"], f["size"], ABLATE_DEVICE)
+    for label, subpixel in (("subpixel", True), ("materialized", False)):
+        t0 = time.perf_counter()
+        rows = ablate_forward.ablate(model, x, f["chain"], subpixel)
+        with torch.no_grad():
+            equal = {s: captured_vs_eager(ablate_forward.prefix(model, s, subpixel), (x,),
+                                          f"ablate_check_{s}")
+                     for s in ablate_forward.STAGES}
+        ms = {s: r[0] for s, r in rows.items()}
+        out["forward"][label] = {
+            "ms_per_iter": ms, "deltas_ms": stage_deltas(ms),
+            "images_per_s": {s: f["batch"] / (t / 1e3) for s, t in ms.items()},
+            "values": {s: r[1] for s, r in rows.items()},
+            "captured_equals_eager": equal, "wall_s": time.perf_counter() - t0}
+    out["forward"]["config"] = {**f, "dtype": "bfloat16"}
+    del model, x
+    a = ABLATE_TRAIN
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        model, x, y = ablate_train.build(a["batch"], a["height"], a["width"], dtype,
+                                         ABLATE_DEVICE)
+        rows = ablate_train.ablate(model, x, y, a["chain"])
+        del model
+        # a fresh model: ``full`` moved that one
+        model, x, y = ablate_train.build(a["batch"], a["height"], a["width"], dtype,
+                                         ABLATE_DEVICE)
+        equal = {r: captured_vs_eager(ablate_train.row_fn(model, r), (x, y), f"ablate_check_{r}")
+                 for r in ablate_train.ROWS}
+        del model
+        equal["full"] = ablate_full_vs_eager(dtype)
+        ms = {r: v[0] for r, v in rows.items()}
+        out["train"][dtype] = {
+            "ms_per_iter": ms, "deltas_ms": stage_deltas(ms),
+            "images_per_s": {r: a["batch"] / (t / 1e3) for r, t in ms.items()},
+            "values": {r: v[1] for r, v in rows.items()},
+            "captured_equals_eager": equal, "wall_s": time.perf_counter() - t0}
+    out["train"]["config"] = dict(a)
+    for part in ("forward", "train"):
+        for label, r in out[part].items():
+            if label == "config":
+                continue
+            if not all(r["captured_equals_eager"].values()) \
+                    or not all(math.isfinite(v) for v in r["values"].values()):
+                raise AssertionError(f"ablate: {part} {label}: {r}")
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+SWEEP_GRID = [["ce", []], ["lovasz", ["--train.loss=lovasz"]]]
+SWEEP_ARGV = ["--epochs", "1"]
+
+
+def phase_sweep() -> dict:
+    """``tpuseg_torch.tools.convergence_sweep`` on a two-row grid (ce and
+    lovasz) at --epochs 1 on the protocol's base config (bf16, batch 64,
+    2276 synthetic scenes, 8 steps a dispatch, a 10% val split): both
+    records ok with a finite val mIoU, the Lovász kernels launched once a
+    step of the lovasz run and never in the ce run; then the same command
+    again, which skips both runs and appends nothing. No post-eval: it
+    reads an on-disk set, which needs cv2. First the two Lovász kernels
+    are held against their plain versions at the protocol's [C, B*H*W],
+    more pixels a block than any other phase gives them."""
+    from tpuseg_torch.tools import convergence_sweep
+
+    base = load_config(convergence_sweep.protocol_flags("check", 1, str(_build.BUILD_DIR)))
+    p = base.train.batch_size * base.data.height * base.data.width
+    out = {"phase": "sweep", "grid": SWEEP_GRID,
+           "lovasz_shape": lovasz_shape_check(p, 800, "sweep")}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        runs = Path(tmp) / "runs.json"
+        runs.write_text(json.dumps(SWEEP_GRID))
+        sweep = Path(tmp) / "sweep"
+        argv = ["--runs", str(runs), "--out", str(sweep), *SWEEP_ARGV]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, _ = run_tool(convergence_sweep.main, argv)
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = dict(kernels.launches)
+        records = [json.loads(line) for line in (sweep / "sweep.jsonl").open()]
+        hist = {name: convergence_sweep.last_epoch(str(sweep / name / "history.jsonl"))
+                for name, _ in SWEEP_GRID}
+        t0 = time.perf_counter()
+        rc2, text2 = run_tool(convergence_sweep.main, argv)
+        out["rerun_s"] = time.perf_counter() - t0
+        n_after = sum(1 for _ in (sweep / "sweep.jsonl").open())
+    steps = {name: h["step"] for name, h in hist.items()}
+    out.update(records=records, steps=steps,
+               train_imgs_per_s={name: h["imgs_per_sec"] for name, h in hist.items()},
+               rerun_skipped=text2.count("already complete, skip"))
+    lovasz = {"lovasz_histograms": steps["lovasz"], "lovasz_lookup": steps["lovasz"]}
+    if (rc != 0 or rc2 != 0 or [r["name"] for r in records] != [n for n, _ in SWEEP_GRID]
+            or not all(r["ok"] and math.isfinite(r["val_miou"] or float("nan"))
+                       for r in records)
+            or steps["lovasz"] <= 0 or out["launches"] != {**out["launches"], **lovasz}
+            or out["rerun_skipped"] != len(SWEEP_GRID) or n_after != len(SWEEP_GRID)):
+        raise AssertionError(f"sweep: {out}")
     emit(out)
     return out
 
@@ -3724,12 +3946,14 @@ def main() -> int:
         bf16 = phase_bf16(perf, train)
         mesh = phase_mesh()
         spatial = phase_spatial(packed_dir)
+    phase_ablate()
+    sweep = phase_sweep()
     spatial_launches = [r["launches"] for r in spatial["train"]] + \
         spatial["combined"]["launches_per_rank"]
     train_counts = {k: train["launches"][k] + packed["launches"][k]
                     + sum(r["launches"].get(k, 0) for r in mesh["train"])
                     + sum(r.get(k, 0) for r in spatial_launches)
-                    + bf16["path_launches"][k] + contact["launches"][k]
+                    + bf16["path_launches"][k] + contact["launches"][k] + sweep["launches"][k]
                     + sum(r.get(k, 0) for r in contact["mesh_launches_per_rank"])
                     for k in train["launches"]}
     # the serving paths: the serve phase's batches, the video phase's and
@@ -3783,6 +4007,8 @@ def main() -> int:
             "qat_distill_per_rank": [r[k] for r in contact["mesh_launches_per_rank"]]}
         extra[k]["spatial_launches_per_rank"] = [r.get(k, 0) for r in spatial_launches]
         extra[k]["spatial_slab_check"] = spatial["lovasz_slab"]
+        extra[k]["sweep_launches"] = sweep["launches"][k]
+        extra[k]["sweep_shape_check"] = sweep["lovasz_shape"]
     extra["lovasz_lookup"]["make_sharded_lovasz"]["spatial_region_ms_per_rank"] = [
         r["lovasz_region_ms"] for r in spatial["train"]]
     emit({"kernels": [

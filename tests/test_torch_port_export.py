@@ -10,8 +10,9 @@ MobileNetV2 families at width_mult 0.25, 32x64). Tolerances:
   ``state_dict_from_flax`` of the JAX result, per family.
 - ``export_model``: the artifact within rel 1e-5 of the live model (1e-2
   for fp16 weights); the Predictor serves it with the live model's maps.
-- ``convert``: each format's rc and self-check; its ONNX file byte-equal
-  to the JAX ``convert.py``'s on the same weights.
+- ``convert``: each format's rc and self-check (SavedModel and TFLite
+  where TensorFlow imports); its ONNX file byte-equal to the JAX
+  ``convert.py``'s on the same weights.
 - ``eval_quantized``: the four weight-only variants' mIoU within 1e-4 of
   the JAX tool's on the same weights, ``int8_full``'s within 1e-2.
 """
@@ -210,8 +211,12 @@ CONVERT_CASES = {
                   "int8 vs fp32 mask agreement"),
     "onnx": (["--export.format=onnx"], 0, "Export is valid!"),
     "onnx_fp16": (["--export.format=onnx", "--export.dtype=float16"], 1, "float32 graphs only"),
-    "savedmodel": (["--export.format=savedmodel"], 1, "JAX package's convert.py"),
-    "tflite": (["--export.format=tflite"], 1, "JAX package's convert.py"),
+    "savedmodel": (["--export.format=savedmodel"], 0, "Export is valid!"),
+    "tflite": (["--export.format=tflite"], 0, "Export is valid!"),
+    # the TF graph computes the fp32 function, checked against fp32 compute;
+    # its distance from the served bf16 model is printed beside, naming C19
+    "savedmodel_bf16_compute": (["--export.format=savedmodel",
+                                 "--model.compute_dtype=bfloat16"], 0, "Export is valid!"),
     "use_pallas": (["--model.name=mobilenetv2_unet", "--model.width_mult=0.25",
                     "--model.use_pallas=true"], 1, "use_pallas=false"),
     "quant_checkpoint_to_onnx": (["--export.format=onnx"], 1, "'quant' collection"),
@@ -223,6 +228,8 @@ def test_convert_formats(case, unet_pth, tmp_path, capsys):
     from tpuseg_torch.convert import main
 
     extra, want_rc, said = CONVERT_CASES[case]
+    if case.startswith(("savedmodel", "tflite")):
+        pytest.importorskip("tensorflow")
     out = str(tmp_path / "artifact")
     ckpt = unet_pth
     if case == "quant_checkpoint_to_onnx":
@@ -234,6 +241,8 @@ def test_convert_formats(case, unet_pth, tmp_path, capsys):
     rc = main(BASE_FLAGS + [f"--export.checkpoint={ckpt}", f"--export.output={out}"] + extra)
     text = capsys.readouterr().out
     assert rc == want_rc and said in text, text
+    if case == "savedmodel_bf16_compute":
+        assert "Against the served bfloat16 model" in text and "C19" in text, text
     if case == "quantized":
         p = Predictor(ModelConfig(**FAMILIES["unet"]), checkpoint=out, input_hw=HW,
                       batch_size=2, device="cpu")

@@ -26,8 +26,20 @@ self-check as the JAX tool:
 - ``onnx``: fp32 only; the JAX exporter's bytes (``export/onnx_export.py``),
   checked structurally and executed back (``export/onnx_run.py``) against
   the live model at rel < 1e-5.
-- ``savedmodel``/``tflite``: not in the port (they need TensorFlow, through
-  jax2tf): rc 1, naming the JAX package's ``convert.py``.
+- ``savedmodel``/``tflite``: a TF SavedModel (a polymorphic batch with
+  ``--export.batch=-1``) or a TFLite flatbuffer (batch 1 for -1;
+  ``--export.dtype=float16`` stores fp16 weights, ``bfloat16`` is
+  refused), built from the port's ONNX graph with BatchNorm folded
+  (``export/tf_export.py``) and run back by TensorFlow on the CPU against
+  the live model at rel < 1e-3 (1e-2 for fp16 weights), as the JAX tool
+  checks. The graph computes the fp32 function of the weights, so a
+  bf16-compute model is checked against its fp32 compute, as ONNX is
+  (the JAX SavedModel of such a model rounds in bf16: ROADMAP.md C19),
+  and its distance from the served bf16 model is printed beside, with a
+  note naming C19.
+  A SavedModel ignores ``--export.dtype``, as the JAX one does. They need
+  TensorFlow: on a host without it, rc 1 naming it, and no other format
+  is written instead.
 
 ``--export.dtype=int8`` exports dequantize(quantize(weights)) in an fp32
 graph. A checkpoint that carries an int8 ``quant`` collection is refused
@@ -93,10 +105,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         export_dtype = cfg.export.dtype
 
     if fmt in ("savedmodel", "tflite"):
-        print(f"ERROR: format {fmt!r} needs TensorFlow (jax2tf) and is not in the port "
-              "(ROADMAP.md A12, export/tf_export.py): export it with the JAX package's "
-              "convert.py")
-        return 1
+        return _export_tf(cfg, model, state, export_dtype, device)
     if fmt == "quantized":
         return _export_quantized(cfg, state, device)
     if fmt == "onnx":
@@ -134,6 +143,59 @@ def _export_program(cfg, model, state, export_dtype: str, device) -> int:
     if not (rel < 1e-5 if exact else rel < 1e-2):
         print("ERROR: exported model diverges from source model")
         return 1
+    print("Export is valid!")
+    return 0
+
+
+def _fp32_compute(cfg, model):
+    """``model``, or a twin computing in fp32: the ONNX and TF graphs are the
+    fp32 function of the weights, so their checks compare with fp32 compute
+    (ROADMAP.md C19)."""
+    if cfg.model.compute_dtype == "float32":
+        return model
+    from tpuseg_torch.models.registry import build_model
+
+    return build_model(dataclasses.replace(cfg.model, compute_dtype="float32"))
+
+
+def _export_tf(cfg, model, state, export_dtype: str, device) -> int:
+    """SavedModel / TFLite export with the JAX tool's round-trip check."""
+    from tpuseg_torch.export import tf_export
+
+    served = model
+    model = _fp32_compute(cfg, model)
+    h, w = cfg.data.height, cfg.data.width
+    fmt = cfg.export.format
+    try:
+        if fmt == "savedmodel":
+            tf_export.export_savedmodel(model, state, h, w, cfg.export.output,
+                                        batch=cfg.export.batch)
+            print(f"Exported SavedModel to {cfg.export.output}")
+            run = lambda x: tf_export.run_savedmodel(cfg.export.output, x)
+            check_batch = 2
+        else:
+            batch = cfg.export.batch if cfg.export.batch != -1 else 1
+            data = tf_export.export_tflite(model, state, h, w, cfg.export.output,
+                                           batch=batch, dtype=export_dtype)
+            print(f"Exported {len(data)} bytes of TFLite to {cfg.export.output}")
+            run = lambda x: tf_export.run_tflite(cfg.export.output, x)
+            check_batch = batch
+    except (ImportError, ValueError) as e:
+        print(f"ERROR: format {fmt!r}: {e}")
+        return 1
+    x = np.random.RandomState(0).rand(check_batch, h, w, 3).astype(np.float32)
+    out = torch.from_numpy(run(x))
+    err, rel = _rel(out, _live(model, state, torch.from_numpy(x).to(device), device).cpu())
+    print(f"Round-trip check: max diff {err:.3e} (rel {rel:.3e})")
+    if not (rel < 1e-3 if export_dtype == "float32" else rel < 1e-2):
+        print("ERROR: exported model diverges from source model")
+        return 1
+    if served is not model:
+        err, rel = _rel(out, _live(served, state, torch.from_numpy(x).to(device), device).cpu())
+        print(f"Against the served {cfg.model.compute_dtype} model: max diff {err:.3e} "
+              f"(rel {rel:.3e})")
+        print(f"NOTE: the artifact computes in float32, not {cfg.model.compute_dtype}; the "
+              "check above holds it to the float32-compute model (ROADMAP.md C19)")
     print("Export is valid!")
     return 0
 
@@ -187,15 +249,12 @@ def _export_onnx(cfg, model, state, export_dtype: str, device) -> int:
     """ONNX opset 12, checked structurally and executed back."""
     from tpuseg_torch.export.onnx_export import export_onnx
     from tpuseg_torch.export.onnx_run import check_model, run_model
-    from tpuseg_torch.models.registry import build_model
 
     if export_dtype != "float32":
         print("ERROR: the ONNX exporter emits float32 graphs only; downstream "
               "toolchains own FP16/int8")
         return 1
-    # the graph is the fp32 function of the weights: compare with fp32 compute
-    if cfg.model.compute_dtype != "float32":
-        model = build_model(dataclasses.replace(cfg.model, compute_dtype="float32"))
+    model = _fp32_compute(cfg, model)
     h, w = cfg.data.height, cfg.data.width
     try:
         data = export_onnx(model, state, h, w, path=cfg.export.output,

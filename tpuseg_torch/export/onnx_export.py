@@ -468,7 +468,7 @@ def export_onnx(
     ``upsample_head=False`` ends at the half-resolution logits. ValueError
     when height or width is not a multiple of the family's 32 (MobileNetV2
     encoders) or 8 (UNets), as the JAX exporter checks."""
-    from tpuseg_torch.core.weights import flax_variables
+    from tpuseg_torch.core import weights
     from tpuseg_torch.models.deeplab import MobileNetV2DeepLab
     from tpuseg_torch.models.fpn import MobileNetV2FPN
     from tpuseg_torch.models.mobilenetv2_unet import MobileNetV2UNet
@@ -489,7 +489,7 @@ def export_onnx(
             f"to be multiples of {down}; got {height}x{width}"
         )
 
-    variables = flax_variables(model, state_dict)
+    variables = weights.flax_variables(model, state_dict)
     g = GraphBuilder()
     if isinstance(model, (MobileNetV2UNet, MobileNetV2FPN, MobileNetV2DeepLab)):
         spec = SimpleNamespace(width_mult=model.backbone.width_mult,
