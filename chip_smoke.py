@@ -8,7 +8,7 @@ $CUDA_HOME or /usr/local/cuda, and PyTorch built for CUDA. Phases, each
 printing one JSON line; any failure raises and exits nonzero:
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit;
-2. build   — nvcc builds the six kernels from tpuseg_torch/csrc (one
+2. build   — nvcc builds the seven kernel sources in tpuseg_torch/csrc (one
              process each, in parallel) into build/kernels; ptxas's
              register, shared-memory and spill report;
 3. kernels — each kernel against its plain PyTorch version at the serving
@@ -25,6 +25,17 @@ printing one JSON line; any failure raises and exits nonzero:
              (mbconv_f64) is recorded beside the plain version's; and the
              launch floor (a one-element fill_ in the same graph timing)
              is timed beside upsample2x_argmax, whose bound lies below it;
+             the fused Lovász region's two kernels (lovasz_logits.cu) at the
+             train batch's logits [8,128,256,10], f32, with ignore 255 and
+             on bf16 logits, against their plain versions (hold_region:
+             counts and fg sums may part only where a pixel's plain error
+             lies within EDGE_ATOL of a bin edge, every class counts P, the
+             gradient within REGION_GRAD_RTOL wherever the bins agree) and
+             repeating bit-equal, timed; and the one-card loss region,
+             forward and backward, captured, on the route before them (the
+             [C, P] planes, the plane kernels, autograd through the
+             softmax) and the fused op in turns, at [10, 262,144] and the
+             sweep's [10, 2,097,152];
 4. serve   — the full-width mobilenetv2_unet (10 classes, 256x128, batch 8,
              --model.use_pallas=true --model.up_subpixel=false) served
              through the port's Predictor on 360x640 frames, with the launch
@@ -74,7 +85,7 @@ printing one JSON line; any failure raises and exits nonzero:
              held to MAX_GRAPHS keys with the memory of as many (16 frame
              sizes against 8). The launch counters, which a replay adds to,
              are held against the device's own kernel counts from
-             torch.profiler: the two Lovász kernels over a 5-step
+             torch.profiler: the two fused Lovász kernels over a 5-step
              profile_dir run, argmax_colorize and the decoder kernel over
              the kernel route's served batches. Then eager against
              captured: the train p50 step and its stages at
@@ -85,8 +96,8 @@ printing one JSON line; any failure raises and exits nonzero:
 6. train   — the full-width mobilenetv2_unet trained through
              ``tpuseg_torch.main`` with --train.loss=lovasz (256 bins, batch
              8, 256x128, Adam 1.5e-4, augment on, synthetic scenes): the
-             loss falls, a val mIoU is computed, both Lovász kernels launch
-             once per step, a checkpoint round-trips; then steady step
+             loss falls, a val mIoU is computed, both fused Lovász kernels
+             launch once per step, a checkpoint round-trips; then steady step
              times, the step's stages, and a 3-step A/B of the kernel loss
              against one built on the plain versions, under deterministic
              algorithms: the replayed steps' gradients (read after each
@@ -98,7 +109,7 @@ printing one JSON line; any failure raises and exits nonzero:
              model trained from the packed directory through
              ``tpuseg_torch.main`` with --data.heavy_augment=true
              --train.loss=ce+lovasz --train.class_weights=auto (80 steps,
-             a val split): both Lovász kernels launch once per step, the
+             a val split): both fused Lovász kernels launch once per step, the
              loss falls (last 10 below first 10), a val mIoU is recorded,
              the resolved weights equal resolve_auto_class_weights over the
              Trainer's own split; a carla source with cv2 refused raises
@@ -115,7 +126,7 @@ printing one JSON line; any failure raises and exits nonzero:
              ``tpuseg_torch.tools.import_pretrained`` (the encoder equal to
              its source, the decoder to the seeded init); (2) 40 captured
              steps of --train.qat=true --train.loss=lovasz from it (the loss
-             falls, both Lovász kernels once a step, 61 QAT convs, the
+             falls, both fused Lovász kernels once a step, 61 QAT convs, the
              state_dict's keys and shapes as without QAT, fake_quant_act and
              fake_quant_kernel on every QAT conv's input and weight
              bit-equal card against CPU, 3 captured steps bit-equal to
@@ -136,12 +147,16 @@ printing one JSON line; any failure raises and exits nonzero:
              bit-equal across ranks;
 8. mesh    — data parallelism: two ranks started by
              ``tpuseg_torch.core.mesh.launch_local`` on the card over gloo
-             (with a card per rank, NCCL): the sharded Lovász on each
-             rank's 4 rows of [8,128,256,10] against the one-process
-             kernel route (coefficients bit-equal, value within 1e-4,
-             gradient within 1e-6) and the plain sharded version, one
-             launch of each kernel per call, its timings (the region with
-             its staged all_reduce, the all_reduce, the local part); the
+             (with a card per rank, NCCL): the sharded Lovász (the fused
+             region) on each rank's 4 rows of [8,128,256,10] against the
+             one-process fused route (global counts and fg sums bit-equal,
+             value within 1e-4, gradient within 1e-6), the plane kernels'
+             composition and the plain route (coefficients and histograms
+             bit-equal, value within 1e-4, gradient within 1e-6),
+             the rank's own rows held by hold_region, one launch of each
+             fused kernel per call, its timings (the region with its staged
+             all_reduce, the all_reduce, the local part fused, composed of
+             the plane kernels and plain); the
              flagship trained 20 steps through ``tpuseg_torch.main
              --mesh.data=2 --train.loss=ce+lovasz`` (the loss falls, the
              parameters bit-equal across ranks, 20 launches per rank, the
@@ -172,7 +187,7 @@ printing one JSON line; any failure raises and exits nonzero:
              with fp32, reported), frames/s, p50 and the captured device
              stage against fp32 in turns; (c) ``tpuseg_torch.main
              --model.compute_dtype=bfloat16 --train.loss=lovasz`` for 40
-             steps (the loss falls, both Lovász kernels once a step), 3
+             steps (the loss falls, both fused Lovász kernels once a step), 3
              captured steps bit-equal to eager, the p50 beside the train
              phase's and the device step against fp32 in turns; (d) 5 steps
              each with --train.mu_dtype=bfloat16 and --train.grads_bf16=true
@@ -180,7 +195,8 @@ printing one JSON line; any failure raises and exits nonzero:
              path launches join the summary's counts.
 9b. spatial — the spatially sharded train step, after mesh: the Lovász
              kernels at one rank's slab [10, 131,072] (another plan than
-             the whole batch's) against their plain versions; two ranks
+             the whole batch's; the fused pair on the slab's [8,64,256,10]
+             logits) against their plain versions; two ranks
              (as mesh_route places them) train the full-width flagship 20
              steps from the packed set through ``tpuseg_torch.main
              --mesh.data=1 --mesh.spatial=2 --train.loss=ce+lovasz`` (64-row
@@ -240,13 +256,13 @@ printing one JSON line; any failure raises and exits nonzero:
              algorithms; ``full``, the real train step, as 3 captured steps
              against 3 eager ones from the same seed: losses and the whole
              state_dict bit-equal);
-12. sweep  — the two Lovász kernels against their plain versions at
-             the protocol's [10, 64*128*256] (8x batch 8's pixels a
-             block), then ``tpuseg_torch.tools.convergence_sweep`` on a
-             two-row grid (ce, lovasz) at --epochs 1 on the protocol's
+12. sweep  — the Lovász kernels against their plain versions at the
+             protocol's [10, 64*128*256] (8x batch 8's pixels a block; the
+             fused pair on its [64,128,256,10] logits), then
+             ``tpuseg_torch.tools.convergence_sweep`` on a two-row grid (ce, lovasz) at --epochs 1 on the protocol's
              base config (bf16, batch 64, 2276 synthetic scenes, 8 steps a
-             dispatch), counted from 0: both records ok with a finite val mIoU, each Lovász kernel
-             launched once a step of the lovasz run and never in the ce
+             dispatch), counted from 0: both records ok with a finite val
+             mIoU, each fused Lovász kernel launched once a step of the lovasz run and never in the ce
              run (its launches join the summary's counts), then the same
              command again skipping both runs.
 
@@ -267,11 +283,11 @@ launches on the serving (serve and video phases) or training path (train,
 train_packed, train_contact's QAT and distilled runs and its 3 steps on
 each rank, the mesh phase's 20 steps on each rank, the spatial phase's
 20 steps on each of its two ranks and 3 on each of its four, and the
-sweep's lovasz run);
-fused_inverted_residual runs on
-no path, so it shows 0 and, as ``check_launches``, the mbconv phase's. Without a CUDA device, or without the
-tpuseg_torch package beside this file, it exits nonzero and prints no
-result. fp32 comparisons run with TF32 off for both cuDNN and matmul. The
+sweep's lovasz run); fused_inverted_residual, lovasz_histograms and
+lovasz_lookup run on no path (the training paths run the fused Lovász
+kernels), so they show 0 and, as ``check_launches``, their checks'.
+Without a CUDA device, or without the tpuseg_torch package beside this
+file, it exits nonzero and prints no result. fp32 comparisons run with TF32 off for both cuDNN and matmul. The
 summary gives each of the four bf16 kernels its ``bf16_*`` fields beside
 the fp32 ones.
 
@@ -343,6 +359,10 @@ REPLACES = {
     "fused_upsample_concat_conv": "tpuseg/ops/pallas_kernels.py:314",
     "lovasz_histograms": "tpuseg/ops/lovasz_pallas.py:124",
     "lovasz_lookup": "tpuseg/ops/lovasz_pallas.py:170",
+    # the region of make_sharded_lovasz from logits to gradient (:265-289,
+    # under shard_map :291), two kernels
+    "lovasz_logits_histograms": "tpuseg/ops/lovasz_pallas.py:238",
+    "lovasz_logits_grad": "tpuseg/ops/lovasz_pallas.py:238",
     "fused_inverted_residual": "tpuseg/ops/pallas_mbconv.py:136",
 }
 SOURCES = {
@@ -351,8 +371,23 @@ SOURCES = {
     "fused_upsample_concat_conv": "tpuseg_torch/csrc/upconcat_conv.cu",
     "lovasz_histograms": "tpuseg_torch/csrc/lovasz_histograms.cu",
     "lovasz_lookup": "tpuseg_torch/csrc/lovasz_lookup.cu",
+    "lovasz_logits_histograms": "tpuseg_torch/csrc/lovasz_logits.cu",
+    "lovasz_logits_grad": "tpuseg_torch/csrc/lovasz_logits.cu",
     "fused_inverted_residual": "tpuseg_torch/csrc/mbconv.cu",
 }
+# the Lovász kernels that the training paths launch, each once a step (the
+# plane kernels lovasz_histograms and lovasz_lookup are held in checks only)
+PATH_LOVASZ = ("lovasz_logits_histograms", "lovasz_logits_grad")
+
+
+def lovasz_want(n: int) -> dict:
+    """The launch counts of a run of ``n`` Lovász steps: each path kernel n."""
+    return {k: n for k in PATH_LOVASZ}
+
+
+def path_want(**counts) -> dict:
+    """Every kernel's expected launches: 0 but for ``counts``."""
+    return {**{k: 0 for k in kernels.launches}, **counts}
 # the Lovász planes of one training batch: [C, B*H*W] = [10, 262,144]
 LOVASZ_SHAPE = (CLASSES, BATCH * MODEL_HW[0] * MODEL_HW[1])
 # error-sum histogram: f32 sums of up to 2.6e5 errors per bin, taken in
@@ -654,6 +689,7 @@ def phase_kernels():
                 "(cuDNN, TF32 off)",
         per_call=per_shape, note="ms are sums over the four up blocks of one forward")
     out.update(lovasz_rows())
+    out.update(lovasz_logits_rows())
     out["fused_inverted_residual"] = mbconv_row()
     emit({"phase": "kernels", **out})
     return out
@@ -683,6 +719,7 @@ def lovasz_rows():
     from tpuseg_torch.ops import lovasz
 
     c, p = LOVASZ_SHAPE
+    before = {k: kernels.launches[k] for k in ("lovasz_histograms", "lovasz_lookup")}
     e, fg = lovasz_planes(400)
     hk = lovasz.lovasz_histograms(e, fg)
     again = lovasz.lovasz_histograms(e, fg)
@@ -714,6 +751,7 @@ def lovasz_rows():
     value_err = abs(float(vk.detach()) - float(vp.detach()))
     if value_err > LOVASZ_VALUE_ATOL or not torch.equal(ek.grad, ep.grad):
         raise AssertionError(f"Lovász op: value off by {value_err}, or gradients differ")
+    checked = {k: kernels.launches[k] - n for k, n in before.items()}
 
     plane = c * p * 4
     hist_ins = copies(lambda i: lovasz_planes(500 + i), 2 * plane)
@@ -727,14 +765,14 @@ def lovasz_rows():
             ms=device_ms(lovasz.lovasz_histograms, hist_ins),
             plain_ms=device_ms(lovasz.lovasz_histograms_plain, hist_ins),
             library_ms=None, library="none: no one PyTorch call gives the three histograms",
-            shape=list(LOVASZ_SHAPE)),
+            shape=list(LOVASZ_SHAPE), check_launches=checked["lovasz_histograms"]),
         "lovasz_lookup": dict(
             max_abs_err=float((wk - wp).abs().max()), w_bit_equal=True,
             grad_bit_equal=True,
             ms=device_ms(lovasz.lovasz_lookup, look_ins),
             plain_ms=device_ms(lovasz.lovasz_lookup_plain, look_ins),
             library_ms=None, library="none: no one PyTorch call bins and gathers",
-            shape=list(LOVASZ_SHAPE)),
+            shape=list(LOVASZ_SHAPE), check_launches=checked["lovasz_lookup"]),
     }
     # bytes: each input read once, each output written once; operations:
     # 3 adds per pixel (histograms), one select per pixel (lookup)
@@ -744,6 +782,174 @@ def lovasz_rows():
         2 * plane + c * 256 * 4, c * p)
     return rows
 
+
+# the fused region: a plain error within this of a bin edge k / 256 may bin
+# on the other side in the kernel, whose softmax may round apart from
+# torch's exp(log_softmax) by a few ulps (2^-21: 4 ulps of 1.0)
+EDGE_ATOL = 2.0**-21
+# the fused gradient against the plain closed form on the same histograms,
+# wherever a pixel's bins agree, relative to the largest magnitude (the
+# class sum of wt p is taken in another order)
+REGION_GRAD_RTOL = 1e-6
+# fp32 operations a pixel and class costs in each fused kernel (softmax,
+# error, bin and adds; the closed form), for the bound: far below its bytes
+HIST_OPS, GRAD_OPS = 10, 14
+# the one-card loss region, forward and backward: batch 8's [10, 262,144]
+# and the sweep's batch 64, [10, 2,097,152]
+LOSS_REGION_SHAPES = {"batch8": (BATCH, *MODEL_HW), "sweep_batch64": (64, *MODEL_HW)}
+
+
+def region_inputs(shape, seed: int, ignore=None):
+    """Seeded logits [*shape, C] (scale 2) and int64 labels on the card;
+    with ``ignore``, the first 3 columns of every row carry it."""
+    g = make_generator(seed, "cuda")
+    x = torch.randn((*shape, CLASSES), generator=g, device="cuda") * 2.0
+    t = torch.randint(0, CLASSES, tuple(shape), generator=g, device="cuda")
+    if ignore is not None:
+        t[..., :3] = ignore
+    return x, t
+
+
+def hold_region(x, t, hk, vk, gk, what: str, ignore=None) -> dict:
+    """The fused kernels' histograms ``hk``, and the value ``vk`` and
+    gradient ``gk`` computed from them, against the plain versions on the
+    same logits: per class and bin the counts and fg sums at least those of
+    the pixels clear of every bin edge and at most those plus the edge
+    pixels that could fall there, every class counting P exactly, the error
+    sums within ERRSUM_RTOL of the plain ones plus the edge pixels' errors;
+    the gradient within REGION_GRAD_RTOL of the plain closed form on hk
+    wherever a pixel's bins agree, and its value within 1e-6; the value
+    within LOVASZ_VALUE_ATOL of the whole plain route's."""
+    from tpuseg_torch.ops import lovasz
+
+    hp = lovasz.lovasz_logits_histograms_plain(x, t, ignore)
+    _, _, fg, e, _ = lovasz._planes(x, t, ignore)
+    c, p = e.shape
+    scaled = e.double() * 256
+    k = torch.round(scaled)
+    edge = ((scaled - k).abs() <= EDGE_ATOL * 256) & (k >= 1) & (k <= 255)
+    bins = torch.clamp(scaled, max=255).long()
+    rows = torch.arange(c, device=e.device)[:, None] * 256
+    sure = torch.zeros((3, c * 256), dtype=torch.float64, device=e.device)
+    near = torch.zeros((3, c * 256), dtype=torch.float64, device=e.device)
+    for i, v in enumerate((torch.ones_like(e), fg, e)):
+        sure[i].index_add_(0, (bins + rows)[~edge], v[~edge].double())
+        for side in (k - 1, k):
+            near[i].index_add_(0, (side.long() + rows)[edge], v[edge].double())
+    got = hk.double().reshape(3, -1)
+    in_bounds = bool(((got[:2] >= sure[:2]) & (got[:2] <= sure[:2] + near[:2])).all())
+    err = (got[2] - hp[2].double().reshape(-1)).abs()
+    err_ok = bool((err <= ERRSUM_RTOL * hp[2].double().abs().reshape(-1) + 1e-6
+                   + near[2]).all())
+    vp, gp = lovasz.lovasz_logits_grad_plain(x, t, hk, ignore)
+    agree = ~edge.any(dim=0).reshape(x.shape[:-1])
+    g_err = float((gk - gp).abs()[agree].max())
+    v_plain, _ = lovasz.lovasz_logits_grad_plain(x, t, hp, ignore)
+    out = {"shape": [c, p], "logits": str(x.dtype).replace("torch.", ""),
+           "ignore_index": ignore, "edge_pixels": int((~agree).sum()),
+           "grad_bit_equal_where_bins_agree": torch.equal(gk[agree], gp[agree]),
+           "hist_entries_apart": int((hk[:2] != hp[:2]).any(dim=0).sum()),
+           "counts_in_bounds": in_bounds, "errsum_max_abs_err": float(err.max()),
+           "grad_max_abs_err": g_err, "grad_max_abs": float(gp.abs().max()),
+           "value_vs_plain_on_same_hist": abs(float(vk) - float(vp)),
+           "value_abs_err": abs(float(vk) - float(v_plain))}
+    if (not in_bounds or not err_ok or not bool((hk[0].sum(dim=1) == p).all())
+            or g_err > REGION_GRAD_RTOL * out["grad_max_abs"]
+            or out["value_vs_plain_on_same_hist"] > 1e-6
+            or out["value_abs_err"] > LOVASZ_VALUE_ATOL
+            or (not bool(edge.any()) and out["hist_entries_apart"])):
+        raise AssertionError(f"{what}: the fused Lovász kernels against their plain "
+                             f"versions: {out}")
+    return out
+
+
+def fused_region_check(shape, seed: int, what: str, ignore=None, dtype=torch.float32) -> dict:
+    """Both fused kernels at logits [*shape, C] held by hold_region, their
+    counts, fg sums and gradient repeating bit for bit."""
+    from tpuseg_torch.ops import lovasz
+
+    x, t = region_inputs(shape, seed, ignore)
+    x = x.to(dtype)
+    hk = lovasz.lovasz_logits_histograms(x, t, ignore)
+    vk, gk = lovasz.lovasz_logits_grad(x, t, hk, ignore)
+    out = hold_region(x, t, hk, vk, gk, what, ignore)
+    again = lovasz.lovasz_logits_histograms(x, t, ignore)
+    if not (torch.equal(again[:2], hk[:2])
+            and torch.equal(lovasz.lovasz_logits_grad(x, t, again, ignore)[1], gk)):
+        raise AssertionError(f"{what}: repeated fused Lovász calls differ")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out.update(repeat_bit_equal=True,
+               blocks=lovasz.lovasz_logits_plan(CLASSES, x.numel() // CLASSES, sms))
+    return out
+
+
+def loss_region_ms(shape) -> dict:
+    """Device ms of the one-card Lovász region, forward and backward,
+    captured, on logits [*shape, C]: the route before the fused kernels
+    (the [C, P] planes, the plane kernels, autograd through the softmax)
+    and the fused op, in turns (old, fused, fused, old)."""
+    from tpuseg_torch.ops.lovasz import lovasz_binned_kernel, lovasz_logits_loss
+    from tpuseg_torch.train.loss import lovasz_errors
+
+    def old(x, t):
+        x.grad = None
+        lovasz_binned_kernel(*lovasz_errors(x, t)).backward()
+
+    def fused(x, t):
+        x.grad = None
+        lovasz_logits_loss(x, t).backward()
+
+    n = math.prod(shape)
+
+    def make(i):
+        x, t = region_inputs(shape, 900 + i)
+        return x.requires_grad_(True), t
+
+    ins = copies(make, n * CLASSES * 4 + n * 8)
+    runs = {"old": [], "fused": []}
+    for label in ("old", "fused", "fused", "old"):
+        runs[label].append(device_ms(old if label == "old" else fused, ins, replays=10))
+    del ins
+    return {"shape": [CLASSES, n], "old_ms": runs["old"], "fused_ms": runs["fused"],
+            "saved_ms": min(runs["old"]) - max(runs["fused"])}
+
+
+def lovasz_logits_rows():
+    """The fused region's two kernels at the train batch's [8,128,256,10]
+    against their plain versions (hold_region: f32, ignore 255, bf16
+    logits), timed beside the plain versions; then the one-card loss
+    region at LOSS_REGION_SHAPES, old route and fused in turns."""
+    from tpuseg_torch.ops import lovasz
+
+    shape = (BATCH, *MODEL_HW)
+    checks = {"f32": fused_region_check(shape, 410, "kernels"),
+              "ignore_255": fused_region_check(shape, 411, "kernels", ignore=255),
+              "bf16": fused_region_check(shape, 412, "kernels", dtype=torch.bfloat16)}
+    n = math.prod(shape)
+    logit_bytes, target_bytes, hist_bytes = n * CLASSES * 4, n * 8, 3 * CLASSES * 256 * 4
+    ins = copies(lambda i: region_inputs(shape, 420 + i), logit_bytes + target_bytes)
+    grad_ins = [(x, t, lovasz.lovasz_logits_histograms(x, t)) for x, t in ins]
+    library = "none: no one PyTorch call computes the region's histograms or gradient"
+    rows = {
+        "lovasz_logits_histograms": dict(
+            max_abs_err=checks["f32"]["errsum_max_abs_err"], checks=checks,
+            ms=device_ms(lovasz.lovasz_logits_histograms, ins),
+            plain_ms=device_ms(lovasz.lovasz_logits_histograms_plain, ins),
+            library_ms=None, library=library, shape=[*shape, CLASSES]),
+        "lovasz_logits_grad": dict(
+            max_abs_err=checks["f32"]["grad_max_abs_err"],
+            ms=device_ms(lovasz.lovasz_logits_grad, grad_ins),
+            plain_ms=device_ms(lovasz.lovasz_logits_grad_plain, grad_ins),
+            library_ms=None, library=library, shape=[*shape, CLASSES]),
+    }
+    del ins, grad_ins
+    rows["lovasz_logits_histograms"]["bound_ms"], rows["lovasz_logits_histograms"][
+        "bound_by"] = bound_ms(logit_bytes + target_bytes + hist_bytes, HIST_OPS * n * CLASSES)
+    rows["lovasz_logits_grad"]["bound_ms"], rows["lovasz_logits_grad"]["bound_by"] = bound_ms(
+        2 * logit_bytes + target_bytes + hist_bytes, GRAD_OPS * n * CLASSES)
+    rows["lovasz_logits_grad"]["loss_region"] = {
+        name: loss_region_ms(s) for name, s in LOSS_REGION_SHAPES.items()}
+    return rows
 
 def mbconv_block(shape: BlockShape, seed: int):
     """A port InvertedResidual of ``shape`` on the card in eval, seeded
@@ -939,9 +1145,8 @@ def phase_serve(pth: Path, name: str):
     kernels.reset_launches()
     outs = [pred(f) for f in frames]
     counts = dict(kernels.launches)
-    want = {"fused_upsample_concat_conv": 4 * SERVE_BATCHES,
-            "argmax_colorize": SERVE_BATCHES, "upsample2x_argmax": 0,
-            "lovasz_histograms": 0, "lovasz_lookup": 0, "fused_inverted_residual": 0}
+    want = path_want(fused_upsample_concat_conv=4 * SERVE_BATCHES,
+                     argmax_colorize=SERVE_BATCHES)
     if counts != want:
         raise AssertionError(f"serve launches {counts}, expected {want}")
 
@@ -973,8 +1178,7 @@ def phase_head(pred, frames):
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
     model.upsample_head = True
-    want = {"fused_upsample_concat_conv": 4, "argmax_colorize": 0, "upsample2x_argmax": 1,
-            "lovasz_histograms": 0, "lovasz_lookup": 0, "fused_inverted_residual": 0}
+    want = path_want(fused_upsample_concat_conv=4, upsample2x_argmax=1)
     if counts != want:
         raise AssertionError(f"head launches {counts}, expected {want}")
     full = model(x).permute(0, 2, 3, 1)
@@ -1403,8 +1607,8 @@ def phase_train(perf) -> dict:
     import copy
 
     from tpuseg_torch.main import main as train_main
-    from tpuseg_torch.ops.lovasz import lovasz_binned_plain
-    from tpuseg_torch.train.loss import lovasz_errors, make_loss_fn
+    from tpuseg_torch.ops.lovasz import lovasz_logits_loss_plain
+    from tpuseg_torch.train.loss import make_loss_fn
     from tpuseg_torch.train.optim import Optimizer
     from tpuseg_torch.train.train_step import make_train_step
     from tpuseg_torch.train.trainer import Trainer
@@ -1421,9 +1625,7 @@ def phase_train(perf) -> dict:
         counts = dict(kernels.launches)
 
         cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
-        want = {"argmax_colorize": 0, "upsample2x_argmax": 0, "fused_upsample_concat_conv": 0,
-                "lovasz_histograms": TRAIN_STEPS, "lovasz_lookup": TRAIN_STEPS,
-                "fused_inverted_residual": 0}
+        want = path_want(**lovasz_want(TRAIN_STEPS))
         if counts != want or tr.step != TRAIN_STEPS:
             raise AssertionError(f"train launches {counts} after {tr.step} steps, want {want}")
         slice_cfg = dict(name="mobilenetv2_unet", width_mult=1.0, num_classes=10,
@@ -1494,24 +1696,26 @@ def phase_train(perf) -> dict:
             st[k].append(dt * 1e3)
     stages = {k: float(np.median(v[3:])) for k, v in st.items()}
     p50 = float(np.median(steady)) * 1e3
-    kernel_ms = perf["lovasz_histograms"]["ms"] + perf["lovasz_lookup"]["ms"]
+    kernel_ms = sum(perf[k]["ms"] for k in PATH_LOVASZ)
 
     # A/B: AB_STEPS steps from one state on the same batches, with the
     # kernel loss, with a loss built on the plain versions, and with that one
     # again (the noise floor of the rest of the step). Deterministic
-    # algorithms make the rest of the step repeat bit for bit, and w is
-    # bit-equal on both routes, so every replayed step's gradients and the
-    # final parameters must be equal; only the loss values differ (error
-    # sums). The step is captured: its first call runs eagerly and then
-    # captures, which leaves each p.grad a graph tensor that no kernel has
-    # written yet, so the gradients are read after each replay (steps 2 on),
-    # and each read must be finite and not all zero.
+    # algorithms make the rest of the step repeat bit for bit, and the fused
+    # kernels bin as the plain route does and round its gradient as it does
+    # (the softmax in torch's order, the class sum in class order), so every
+    # replayed step's gradients and the final parameters must be equal; only
+    # the loss values may differ (the error sums' summation). The step is
+    # captured: its first call runs eagerly and then captures, which leaves
+    # each p.grad a graph tensor that no kernel has written yet, so the
+    # gradients are read after each replay (steps 2 on), and each read must
+    # be finite and not all zero.
     start = copy.deepcopy(tr.model.state_dict())
     batches = [tr.augment(*pipe._put(pipe._assemble(pipe.sampler.sample(
         cfg.train.batch_size))), tr.aug_generator) for _ in range(AB_STEPS)]
 
     def plain_loss(logits, targets):
-        return lovasz_binned_plain(*lovasz_errors(logits, targets))
+        return lovasz_logits_loss_plain(logits, targets)
 
     def ab_run(loss_fn):
         model = build_model(cfg.model).to("cuda", memory_format=torch.channels_last)
@@ -1651,9 +1855,7 @@ def phase_train_packed(synthetic: dict, packed: str) -> dict:
     out["wall_s"] = time.perf_counter() - t0
     counts = dict(kernels.launches)
     cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
-    want = {"argmax_colorize": 0, "upsample2x_argmax": 0, "fused_upsample_concat_conv": 0,
-            "lovasz_histograms": TRAIN_STEPS, "lovasz_lookup": TRAIN_STEPS,
-            "fused_inverted_residual": 0}
+    want = path_want(**lovasz_want(TRAIN_STEPS))
     if counts != want or tr.step != TRAIN_STEPS:
         raise AssertionError(f"train_packed launches {counts} after {tr.step} steps, "
                              f"want {want}")
@@ -1791,7 +1993,7 @@ def contact_import(tmp: Path) -> tuple:
 
 def contact_run(argv, steps: int, what: str):
     """``tpuseg_torch.main`` on ``argv``: the Trainer, its launches (both
-    Lovász kernels once a step, nothing else) and the first and last 5
+    fused Lovász kernels once a step, nothing else) and the first and last 5
     losses (the loss must fall)."""
     from tpuseg_torch.main import main as train_main
 
@@ -1799,8 +2001,7 @@ def contact_run(argv, steps: int, what: str):
     tr = train_main(argv)
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    want = {k: 0 for k in counts}
-    want.update(lovasz_histograms=steps, lovasz_lookup=steps)
+    want = path_want(**lovasz_want(steps))
     losses = tr.step_losses
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if counts != want or tr.step != steps or not all(math.isfinite(v) for v in losses) \
@@ -1977,7 +2178,7 @@ def contact_ranks(flags, n_convs: int) -> dict:
                * INV_LEVELS).item()
         equal += int(s0 == s1 == one and m0 and m1)
         local_differ += int(l0 != l1)
-    want = {"lovasz_histograms": CONTACT_MESH_STEPS, "lovasz_lookup": CONTACT_MESH_STEPS}
+    want = lovasz_want(CONTACT_MESH_STEPS)
     row = {"route": mesh_route(MESH_RANKS)[0], "wall_s": wall,
            "scales_recorded": [len(r["scales"]) for r in ranks],
            "scales_equal_one_process": equal, "convs_whose_rank_absmax_differ": local_differ,
@@ -2346,7 +2547,7 @@ def bf16_serve(pth: Path, frames) -> tuple:
 
 def bf16_train(train: dict) -> tuple:
     """(c) ``tpuseg_torch.main --model.compute_dtype=bfloat16
-    --train.loss=lovasz``: the loss falls, both Lovász kernels launch once
+    --train.loss=lovasz``: the loss falls, both fused Lovász kernels launch once
     a step, 3 captured steps bit-equal to eager; the steady p50 beside the
     train phase's, and the device step against fp32 in turns."""
     from tpuseg_torch.main import main as train_main
@@ -2358,8 +2559,7 @@ def bf16_train(train: dict) -> tuple:
     tr = train_main(argv)
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    want = {k: 0 for k in counts}
-    want.update(lovasz_histograms=BF16_TRAIN_STEPS, lovasz_lookup=BF16_TRAIN_STEPS)
+    want = path_want(**lovasz_want(BF16_TRAIN_STEPS))
     if counts != want or tr.step != BF16_TRAIN_STEPS:
         raise AssertionError(f"bf16 train launches {counts} after {tr.step} steps")
     losses = tr.step_losses
@@ -2516,44 +2716,50 @@ def mesh_rank(device, logits_np, targets_np, flags, n_ranks) -> dict:
 
     from tpuseg_torch.core.mesh import all_reduce_, batch_slice, create_mesh
     from tpuseg_torch.main import main as train_main
-    from tpuseg_torch.ops.lovasz import (lovasz_histograms, lovasz_histograms_plain,
-                                         lovasz_lookup, lovasz_lookup_plain,
-                                         make_sharded_lovasz, sharded_lovasz_parts)
+    from tpuseg_torch.ops import lovasz
 
     mesh = create_mesh(n_ranks, 1)
     rows = batch_slice(mesh, logits_np.shape[0])[0]
     lg = torch.from_numpy(logits_np[rows]).to(device)
     tg = torch.from_numpy(targets_np[rows]).to(device)
-    kern, plain = (lovasz_histograms, lovasz_lookup), (lovasz_histograms_plain,
-                                                       lovasz_lookup_plain)
+    planes = (lovasz.lovasz_histograms, lovasz.lovasz_lookup)
+    plain = (lovasz.lovasz_logits_histograms_plain, lovasz.lovasz_logits_grad_plain)
     out = {"rank": mesh.rank, "backend": mesh.backend, "rows": [rows.start, rows.stop]}
 
-    # (a) the sharded Lovász on this rank's rows: the kernel route, its plain
-    # version, and the autograd op
+    # (a) the sharded Lovász on this rank's rows: the fused route, the plane
+    # kernels' composition, the plain route, and the autograd op
     kernels.reset_launches()
-    value, coef, grad = sharded_lovasz_parts(lg, tg, mesh, False, None, *kern)
+    value, hist, grad = lovasz.lovasz_logits_parts(lg, tg, mesh, False, None)
     torch.cuda.synchronize()
     out["launches_per_call"] = {k: v for k, v in kernels.launches.items() if v}
-    value_p, coef_p, grad_p = sharded_lovasz_parts(lg, tg, mesh, False, None, *plain)
+    value_q, coef_q, grad_q = lovasz.sharded_lovasz_parts(lg, tg, mesh, False, None, *planes)
+    value_p, hist_p, grad_p = lovasz.lovasz_logits_parts(lg, tg, mesh, False, None, *plain)
     x = lg.clone().requires_grad_(True)
-    op_value = make_sharded_lovasz(mesh)(x, tg)
+    op_value = lovasz.make_sharded_lovasz(mesh)(x, tg)
     op_value.backward()
-    out.update(value=float(value), coef=coef.cpu().numpy(), grad=grad.cpu().numpy(),
-               value_plain=float(value_p), coef_plain=coef_p.cpu().numpy(),
+    out.update(value=float(value), hist=hist.cpu().numpy(), grad=grad.cpu().numpy(),
+               value_planes=float(value_q), value_plain=float(value_p),
+               coef_planes_bit_equal=torch.equal(lovasz.coefficients(*hist)[0], coef_q),
+               hist_plain_entries_apart=int((hist[:2] != hist_p[:2]).any(dim=0).sum()),
+               grad_planes_diff=float((grad_q - grad).abs().max()),
                grad_plain_diff=float((grad_p - grad).abs().max()),
                op_value=float(op_value.detach()),
                op_grad_diff=float((x.grad - grad).abs().max()))
-    hist = torch.zeros((3, CLASSES, 256), device=device)
+    # the rank's own rows (no all_reduce) against the plain versions
+    h_local = lovasz.lovasz_logits_histograms(lg, tg)
+    out["local_check"] = hold_region(lg, tg, h_local, *lovasz.lovasz_logits_grad(lg, tg, h_local),
+                                     f"mesh rank {mesh.rank}")
+    zeros = torch.zeros((3, CLASSES, 256), device=device)
     ins = copies(lambda i: (lg.clone(), tg.clone()), lg.numel() * 4 + tg.numel() * 8)
     out["ms"] = {
-        "region": mesh_timed(lambda: sharded_lovasz_parts(lg, tg, mesh, False, None, *kern)),
-        "region_plain": mesh_timed(
-            lambda: sharded_lovasz_parts(lg, tg, mesh, False, None, *plain)),
-        "all_reduce": mesh_timed(lambda: all_reduce_(hist, mesh, mesh.data_group)),
-        "local": device_ms(lambda a, b: sharded_lovasz_parts(a, b, None, False, None, *kern),
+        "region": mesh_timed(lambda: lovasz.lovasz_logits_parts(lg, tg, mesh, False, None)),
+        "all_reduce": mesh_timed(lambda: all_reduce_(zeros, mesh, mesh.data_group)),
+        "local": device_ms(lambda a, b: lovasz.lovasz_logits_parts(a, b, None, False, None),
                            ins),
+        "local_planes": device_ms(
+            lambda a, b: lovasz.sharded_lovasz_parts(a, b, None, False, None, *planes), ins),
         "local_plain": device_ms(
-            lambda a, b: sharded_lovasz_parts(a, b, None, False, None, *plain), ins)}
+            lambda a, b: lovasz.lovasz_logits_parts(a, b, None, False, None, *plain), ins)}
     del ins
 
     # (b) the flagship trained through the entry point over the mesh
@@ -2633,17 +2839,16 @@ def phase_mesh(n_ranks: int = MESH_RANKS) -> dict:
     ranks share it over gloo; with a card per rank they take one each
     over NCCL."""
     from tpuseg_torch.core.mesh import launch_local
-    from tpuseg_torch.ops.lovasz import lovasz_histograms, lovasz_lookup, sharded_lovasz_parts
+    from tpuseg_torch.ops.lovasz import lovasz_logits_parts
 
     rng = np.random.RandomState(SEED)
     logits = (rng.randn(BATCH, *MODEL_HW, CLASSES) * 2).astype(np.float32)
     targets = rng.randint(0, CLASSES, (BATCH, *MODEL_HW))
-    # the one-process kernel route on the whole batch (this builds nothing:
+    # the one-process fused route on the whole batch (this builds nothing:
     # the build phase did, so the ranks load the same libraries)
-    value, coef, grad = sharded_lovasz_parts(
-        torch.from_numpy(logits).cuda(), torch.from_numpy(targets).cuda(), None, False, None,
-        lovasz_histograms, lovasz_lookup)
-    coef, grad = coef.cpu().numpy(), grad.cpu().numpy()
+    value, hist, grad = lovasz_logits_parts(
+        torch.from_numpy(logits).cuda(), torch.from_numpy(targets).cuda(), None, False, None)
+    hist, grad = hist.cpu().numpy(), grad.cpu().numpy()
     route, backend = mesh_route(n_ranks)
     flags = [f"--mesh.data={n_ranks}", *MESH_FLAGS, f"--train.steps_per_epoch={MESH_STEPS}",
              f"--data.val_split={VAL_SPLIT}"]
@@ -2656,25 +2861,31 @@ def phase_mesh(n_ranks: int = MESH_RANKS) -> dict:
     for r in ranks:
         lo, hi = r["rows"]
         row = {"rank": r["rank"], "launches_per_call": r["launches_per_call"],
-               "coef_bit_equal": bool(np.array_equal(r["coef"], coef)),
-               "coef_plain_bit_equal": bool(np.array_equal(r["coef_plain"], r["coef"])),
+               "hist_bit_equal": bool(np.array_equal(r["hist"][:2], hist[:2])),
+               "coef_planes_bit_equal": r["coef_planes_bit_equal"],
+               "hist_plain_entries_apart": r["hist_plain_entries_apart"],
                "value_diff": abs(r["value"] - float(value)),
+               "value_planes_diff": abs(r["value_planes"] - r["value"]),
                "value_plain_diff": abs(r["value_plain"] - r["value"]),
                "op_value_diff": abs(r["op_value"] - r["value"]),
                "grad_diff": float(np.abs(r["grad"] - grad[lo:hi]).max()),
-               "grad_plain_diff": r["grad_plain_diff"], "op_grad_diff": r["op_grad_diff"],
+               "grad_planes_diff": r["grad_planes_diff"], "grad_plain_diff": r["grad_plain_diff"],
+               "op_grad_diff": r["op_grad_diff"], "local_check": r["local_check"],
                "ms": r["ms"]}
         lovasz_rows.append(row)
-        if (row["launches_per_call"] != {"lovasz_histograms": 1, "lovasz_lookup": 1}
-                or not row["coef_bit_equal"] or not row["coef_plain_bit_equal"]
-                or max(row["value_diff"], row["value_plain_diff"],
+        # the fused softmax bins as torch's does, so the plane composition's
+        # coefficients and the plain route's histograms come out equal too
+        if (row["launches_per_call"] != lovasz_want(1) or not row["hist_bit_equal"]
+                or not row["coef_planes_bit_equal"] or row["hist_plain_entries_apart"]
+                or max(row["value_diff"], row["value_planes_diff"], row["value_plain_diff"],
                        row["op_value_diff"]) > LOVASZ_VALUE_ATOL
-                or max(row["grad_diff"], row["grad_plain_diff"]) > MESH_GRAD_ATOL
+                or max(row["grad_diff"], row["grad_planes_diff"],
+                       row["grad_plain_diff"]) > MESH_GRAD_ATOL
                 or row["op_grad_diff"] != 0.0):
             raise AssertionError(f"mesh: the sharded Lovász on rank {r['rank']}: {row}")
         losses = r["losses"]
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        want = {"lovasz_histograms": MESH_STEPS, "lovasz_lookup": MESH_STEPS}
+        want = lovasz_want(MESH_STEPS)
         if (r["launches"] != want or r["steps"] != MESH_STEPS or r["captured"]
                 or r["backend"] != backend or not all(math.isfinite(x) for x in losses)
                 or not last < first or not math.isfinite(r["val_miou"] or float("nan"))):
@@ -2833,7 +3044,7 @@ def spatial_rank(device, flags, logits_np, targets_np) -> dict:
     region timed; then the A/B steps against one process."""
     from tpuseg_torch.core.mesh import batch_slice, create_mesh
     from tpuseg_torch.main import main as train_main
-    from tpuseg_torch.ops.lovasz import lovasz_histograms, lovasz_lookup, sharded_lovasz_parts
+    from tpuseg_torch.ops.lovasz import lovasz_logits_parts
 
     fp32_exact()
     mesh = create_mesh(1, 2)
@@ -2841,8 +3052,7 @@ def spatial_rank(device, flags, logits_np, targets_np) -> dict:
     lg = torch.from_numpy(logits_np[index]).to(device)
     tg = torch.from_numpy(targets_np[index]).to(device)
     out = {"rank": mesh.rank, "backend": mesh.backend, "slab": [index[1].start, index[1].stop],
-           "region_ms": mesh_timed(lambda: sharded_lovasz_parts(
-               lg, tg, mesh, True, None, lovasz_histograms, lovasz_lookup))}
+           "region_ms": mesh_timed(lambda: lovasz_logits_parts(lg, tg, mesh, True, None))}
     kernels.reset_launches()
     tr = train_main(flags)
     torch.cuda.synchronize()
@@ -2891,13 +3101,14 @@ def combined_rank(device) -> dict:
     return out
 
 
-def lovasz_shape_check(p: int, seed: int, what: str) -> dict:
-    """lovasz_histograms and lovasz_lookup at [C, p], a shape a path gives
-    them (its own pixels a block), against their plain versions: counts, fg sums and w bit-equal, error sums within
-    ERRSUM_RTOL of f64."""
+def lovasz_shape_check(shape, seed: int, what: str) -> dict:
+    """The Lovász kernels at a path's own logits ``shape`` [B, H, W] (its
+    own pixels a block): the fused pair held by hold_region, and the plane
+    kernels at [C, B*H*W] against their plain versions: counts, fg sums and
+    w bit-equal, error sums within ERRSUM_RTOL of f64."""
     from tpuseg_torch.ops import lovasz
 
-    c = LOVASZ_SHAPE[0]
+    c, p = LOVASZ_SHAPE[0], math.prod(shape)
     e, fg = lovasz_planes(seed, p)
     hk, hp = lovasz.lovasz_histograms(e, fg), lovasz.lovasz_histograms_plain(e, fg)
     h64 = lovasz.lovasz_histograms_plain(e.double(), fg.double())
@@ -2910,8 +3121,11 @@ def lovasz_shape_check(p: int, seed: int, what: str) -> dict:
         raise AssertionError(f"{what}: the Lovász kernels at [{c}, {p}] differ from their "
                              f"plain versions (error sums {float(err.max())})")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return {"shape": [c, p], "blocks_per_class": lovasz.lovasz_hist_plan(c, p, sms),
-            "counts_fg_w_bit_equal": True, "errsum_max_abs_err": float(err.max())}
+    out = {"shape": [c, p], "blocks_per_class": lovasz.lovasz_hist_plan(c, p, sms),
+           "counts_fg_w_bit_equal": True, "errsum_max_abs_err": float(err.max())}
+    del e, fg, hk, hp, h64, wk, wp
+    out["fused"] = fused_region_check(shape, seed + 1, what)
+    return out
 
 
 def spatial_vs_one(ranks_ab, one: dict, slabs, what: str) -> dict:
@@ -2946,7 +3160,8 @@ def phase_spatial(packed: str) -> dict:
     from tpuseg_torch.core.mesh import launch_local
 
     out = {"phase": "spatial",
-           "lovasz_slab": lovasz_shape_check(LOVASZ_SHAPE[1] // 2, 700, "spatial")}
+           "lovasz_slab": lovasz_shape_check((BATCH, MODEL_HW[0] // 2, MODEL_HW[1]), 700,
+                                             "spatial")}
     rng = np.random.RandomState(SEED)
     logits = (rng.randn(BATCH, *MODEL_HW, CLASSES) * 2).astype(np.float32)
     targets = rng.randint(0, CLASSES, (BATCH, *MODEL_HW))
@@ -2966,7 +3181,7 @@ def phase_spatial(packed: str) -> dict:
     for r in ranks:
         losses = r["losses"]
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        want = {"lovasz_histograms": SPATIAL_STEPS, "lovasz_lookup": SPATIAL_STEPS}
+        want = lovasz_want(SPATIAL_STEPS)
         ratio = r["ab"]["activation_peak_mb"] / one_peak
         row = {"rank": r["rank"], "slab_rows": r["slab"], "launches": r["launches"],
                "loss_first5": first, "loss_last5": last, "val_miou": r["val_miou"],
@@ -3004,7 +3219,7 @@ def phase_spatial(packed: str) -> dict:
                        "activation_ratio": ratios,
                        "vs_one_process": spatial_vs_one(four, one, slabs,
                                                         "data 2 x spatial 2")}
-    want = {"lovasz_histograms": SPATIAL_AB_STEPS, "lovasz_lookup": SPATIAL_AB_STEPS}
+    want = lovasz_want(SPATIAL_AB_STEPS)
     if max(ratios) > SPATIAL_MEMORY_RATIO or any(r["launches"] != want for r in four):
         raise AssertionError(f"spatial data 2 x spatial 2: activation ratios {ratios}, "
                              f"launches {[r['launches'] for r in four]}")
@@ -3096,8 +3311,7 @@ def train_ab(flags, label: str, lovasz: bool) -> dict:
            "launches_captured": cap_n, "launches_eager": eag_n,
            "captured_losses": cap_l, "eager_losses": eag_l,
            "state": snapshot_diff(cap_s, eag_s)}
-    want_n = ({"lovasz_histograms": GRAPH_AB_STEPS, "lovasz_lookup": GRAPH_AB_STEPS}
-              if lovasz else {})
+    want_n = lovasz_want(GRAPH_AB_STEPS) if lovasz else {}
     if cap_n != want_n or eag_n != want_n:
         raise AssertionError(f"graphs: {label} launches {cap_n} captured, {eag_n} eager, "
                              f"want {want_n}")
@@ -3156,7 +3370,8 @@ def eval_ab() -> dict:
 # call (and the other kernel of its source, where it has one, beside it)
 DEVICE_KERNELS = {"argmax_colorize": "argmax_colorize_kernel",
                   "fused_upsample_concat_conv": "upconcat_mma_kernel",
-                  "lovasz_histograms": "hist_partial", "lovasz_lookup": "lookup_kernel"}
+                  "lovasz_logits_histograms": "logits_hist_partial",
+                  "lovasz_logits_grad": "logits_grad_kernel"}
 
 
 def device_time(e) -> float:
@@ -3204,8 +3419,7 @@ def train_profile() -> dict:
     total_ms = sum(device_time(e) for e in rows) / 1e3
     if not traces or total_ms <= 0:
         raise AssertionError(f"profile_dir wrote {traces}, device time {total_ms} ms")
-    seen = check_counted(counts, events, ("lovasz_histograms", "lovasz_lookup"),
-                         f"{PROFILE_STEPS}-step profile_dir run")
+    seen = check_counted(counts, events, PATH_LOVASZ, f"{PROFILE_STEPS}-step profile_dir run")
     if set(seen.values()) != {PROFILE_STEPS}:
         raise AssertionError(f"graphs: {PROFILE_STEPS} profiled steps ran {seen}")
     return {"steps": tr.step, "traces": traces, "device_ms_total": total_ms,
@@ -3370,7 +3584,7 @@ def phase_graphs(pth: Path, frames) -> None:
                      "max_loss_diff": max(abs(a - b) for a, b in zip(multi_l, single_l))}
             if multi["state"]["n_differ"] or multi["max_loss_diff"] > LOVASZ_VALUE_ATOL \
                     or multi_r != 1 or multi_n != single_n or \
-                    multi_n.get("lovasz_histograms") != steps:
+                    multi_n.get("lovasz_logits_histograms") != steps:
                 raise AssertionError(f"graphs: {GRAPH_K} steps per dispatch differ from "
                                      f"single steps: {multi}")
             out["steps_per_dispatch"] = multi
@@ -3864,18 +4078,18 @@ def phase_sweep() -> dict:
     """``tpuseg_torch.tools.convergence_sweep`` on a two-row grid (ce and
     lovasz) at --epochs 1 on the protocol's base config (bf16, batch 64,
     2276 synthetic scenes, 8 steps a dispatch, a 10% val split): both
-    records ok with a finite val mIoU, the Lovász kernels launched once a
+    records ok with a finite val mIoU, the fused Lovász kernels launched once a
     step of the lovasz run and never in the ce run; then the same command
     again, which skips both runs and appends nothing. No post-eval: it
-    reads an on-disk set, which needs cv2. First the two Lovász kernels
+    reads an on-disk set, which needs cv2. First the Lovász kernels
     are held against their plain versions at the protocol's [C, B*H*W],
     more pixels a block than any other phase gives them."""
     from tpuseg_torch.tools import convergence_sweep
 
     base = load_config(convergence_sweep.protocol_flags("check", 1, str(_build.BUILD_DIR)))
-    p = base.train.batch_size * base.data.height * base.data.width
+    shape = (base.train.batch_size, base.data.height, base.data.width)
     out = {"phase": "sweep", "grid": SWEEP_GRID,
-           "lovasz_shape": lovasz_shape_check(p, 800, "sweep")}
+           "lovasz_shape": lovasz_shape_check(shape, 800, "sweep")}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         runs = Path(tmp) / "runs.json"
         runs.write_text(json.dumps(SWEEP_GRID))
@@ -3897,7 +4111,7 @@ def phase_sweep() -> dict:
     out.update(records=records, steps=steps,
                train_imgs_per_s={name: h["imgs_per_sec"] for name, h in hist.items()},
                rerun_skipped=text2.count("already complete, skip"))
-    lovasz = {"lovasz_histograms": steps["lovasz"], "lovasz_lookup": steps["lovasz"]}
+    lovasz = lovasz_want(steps["lovasz"])
     if (rc != 0 or rc2 != 0 or [r["name"] for r in records] != [n for n, _ in SWEEP_GRID]
             or not all(r["ok"] and math.isfinite(r["val_miou"] or float("nan"))
                        for r in records)
@@ -3965,35 +4179,37 @@ def main() -> int:
                 "fused_upsample_concat_conv": serve_counts["fused_upsample_concat_conv"]
                 + video_counts["fused_upsample_concat_conv"]
                 + bf16["path_launches"]["fused_upsample_concat_conv"],
-                "lovasz_histograms": train_counts["lovasz_histograms"],
-                "lovasz_lookup": train_counts["lovasz_lookup"],
+                # the training paths run the fused region; the plane kernels
+                # run in checks only (their check launches are in the line)
+                "lovasz_histograms": 0, "lovasz_lookup": 0,
+                "lovasz_logits_histograms": train_counts["lovasz_logits_histograms"],
+                "lovasz_logits_grad": train_counts["lovasz_logits_grad"],
                 # no served or training path runs the block kernel, as no JAX
                 # path runs the TPU one: its launches are the mbconv check's
                 "fused_inverted_residual": 0}
     dec = perf["fused_upsample_concat_conv"]
     blk = perf["fused_inverted_residual"]
+    region = {
+        "route": mesh["route"],
+        "region_ms_per_rank": [r["ms"]["region"] for r in mesh["sharded_lovasz"]],
+        "all_reduce_ms": [r["ms"]["all_reduce"] for r in mesh["sharded_lovasz"]],
+        "local_ms": [r["ms"]["local"] for r in mesh["sharded_lovasz"]],
+        "local_planes_ms": [r["ms"]["local_planes"] for r in mesh["sharded_lovasz"]],
+        "local_plain_ms": [r["ms"]["local_plain"] for r in mesh["sharded_lovasz"]],
+        "bound_ms": mesh["region_bound_ms"],
+        "spatial_region_ms_per_rank": [r["lovasz_region_ms"] for r in spatial["train"]]}
     extra = {"fused_inverted_residual": {
         "path": "check only", "check_launches": mbconv_counts["fused_inverted_residual"],
         "bound_tc_ms": blk["bound_tc_ms"], "bound_tc_route": blk["bound_tc_route"],
         "bound_fp32_ms": blk["bound_fp32_ms"],
         "per_call_ms": [r["ms"] for r in blk["per_call"] if "block" in r]},
         "upsample2x_argmax": {"launch_floor_ms": perf["upsample2x_argmax"]["launch_floor_ms"]},
-        "lovasz_histograms": {"mesh_launches_per_rank": [r["launches"]["lovasz_histograms"]
-                                                         for r in mesh["train"]]},
-        "lovasz_lookup": {"mesh_launches_per_rank": [r["launches"]["lovasz_lookup"]
-                                                     for r in mesh["train"]],
-                          "make_sharded_lovasz": {
-                              "route": mesh["route"],
-                              "region_ms_per_rank": [r["ms"]["region"]
-                                                     for r in mesh["sharded_lovasz"]],
-                              "all_reduce_ms": [r["ms"]["all_reduce"]
-                                                for r in mesh["sharded_lovasz"]],
-                              "local_ms": [r["ms"]["local"] for r in mesh["sharded_lovasz"]],
-                              "bound_ms": mesh["region_bound_ms"]}},
         "fused_upsample_concat_conv": {
             "bound_tc_ms": dec["bound_tc_ms"], "bound_tc_route": dec["bound_tc_route"],
             "bound_fp32_ms": dec["bound_fp32_ms"],
-            "per_call_ms": {k: r["ms"] for k, r in dec["per_call"].items()}}}
+            "per_call_ms": {k: r["ms"] for k, r in dec["per_call"].items()}},
+        "lovasz_logits_grad": {"make_sharded_lovasz": region,
+                               "loss_region": perf["lovasz_logits_grad"]["loss_region"]}}
     for k, r in bf16["kernels"].items():
         extra.setdefault(k, {}).update(
             {f"bf16_{f}": r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -4001,16 +4217,22 @@ def main() -> int:
     extra["fused_upsample_concat_conv"]["bf16_library_bf16_ms"] = \
         bf16["kernels"]["fused_upsample_concat_conv"]["library_bf16_ms"]
     for k in ("lovasz_histograms", "lovasz_lookup"):
-        extra[k]["bf16"] = "unchanged: the loss promotes the logits to fp32 first"
-        extra[k]["train_contact_launches"] = {
-            "qat": contact["qat"]["launches"][k], "distill": contact["distill"]["launches"][k],
-            "qat_distill_per_rank": [r[k] for r in contact["mesh_launches_per_rank"]]}
-        extra[k]["spatial_launches_per_rank"] = [r.get(k, 0) for r in spatial_launches]
-        extra[k]["spatial_slab_check"] = spatial["lovasz_slab"]
-        extra[k]["sweep_launches"] = sweep["launches"][k]
-        extra[k]["sweep_shape_check"] = sweep["lovasz_shape"]
-    extra["lovasz_lookup"]["make_sharded_lovasz"]["spatial_region_ms_per_rank"] = [
-        r["lovasz_region_ms"] for r in spatial["train"]]
+        extra[k] = {"path": "check only: the training paths run the fused region",
+                    "check_launches": perf[k]["check_launches"],
+                    "spatial_slab_check": spatial["lovasz_slab"],
+                    "sweep_shape_check": sweep["lovasz_shape"]}
+    for k in PATH_LOVASZ:
+        extra.setdefault(k, {}).update({
+            "bf16": "unchanged: the models give fp32 logits (bf16 logits checked in the "
+                    "kernels phase)",
+            "mesh_launches_per_rank": [r["launches"][k] for r in mesh["train"]],
+            "train_contact_launches": {
+                "qat": contact["qat"]["launches"][k], "distill": contact["distill"]["launches"][k],
+                "qat_distill_per_rank": [r[k] for r in contact["mesh_launches_per_rank"]]},
+            "spatial_launches_per_rank": [r.get(k, 0) for r in spatial_launches],
+            "sweep_launches": sweep["launches"][k],
+            "spatial_slab_check": spatial["lovasz_slab"]["fused"],
+            "sweep_shape_check": sweep["lovasz_shape"]["fused"]})
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": perf[k]["max_abs_err"],

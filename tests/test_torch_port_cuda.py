@@ -267,6 +267,171 @@ def test_lovasz_wrappers_reject_what_the_kernels_do_not_take(card):
         lovasz.lovasz_histograms(e[:, ::2], fg[:, ::2])
 
 
+
+# the fused Lovász region: a plain error within this of a bin edge k / 256 may
+# bin on the other side in the kernel, whose softmax may round apart from
+# torch's exp(log_softmax) by a few ulps (2^-21, 4 ulps of 1.0)
+EDGE_ATOL = 2.0**-21
+
+
+def _region_inputs(shape, c, ignore, dtype, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(*shape, c) * 2).astype(np.float32)).cuda().to(dtype)
+    t = rng.randint(0, c, shape)
+    if ignore is not None:
+        t.reshape(-1)[rng.choice(t.size, t.size // 9, replace=False)] = ignore
+    return x, torch.from_numpy(t).cuda()
+
+
+def _hold_histograms(hk, x, t, ignore):
+    """The kernel's histograms against the plain version's, allowing only
+    what a pixel at a bin edge can move: per class and bin, the counts and
+    fg sums of the pixels clear of every edge, plus at most the edge pixels
+    that could fall there; every class counts P exactly. Returns the
+    number of (class, bin) entries where the two differ."""
+    from tpuseg_torch.ops import lovasz
+
+    hp = lovasz.lovasz_logits_histograms_plain(x, t, ignore)
+    _, _, fg, e, _ = lovasz._planes(x, t, ignore)
+    c, p = e.shape
+    scaled = e.double() * 256
+    k = torch.round(scaled)
+    edge = ((scaled - k).abs() <= EDGE_ATOL * 256) & (k >= 1) & (k <= 255)
+    bins = torch.clamp(scaled, max=255).long()
+    rows = torch.arange(c, device=e.device)[:, None] * 256
+    sure = torch.zeros((2, c * 256), dtype=torch.float64, device=e.device)
+    near = torch.zeros((2, c * 256), dtype=torch.float64, device=e.device)
+    for i, v in enumerate((torch.ones_like(e), fg)):
+        sure[i].index_add_(0, (bins + rows)[~edge], v[~edge].double())
+        for side in (k - 1, k):
+            near[i].index_add_(0, (side.long() + rows)[edge], v[edge].double())
+    for i in (0, 1):
+        got = hk[i].double().reshape(-1)
+        assert bool((got >= sure[i]).all()) and bool((got <= sure[i] + near[i]).all())
+    assert torch.equal(hk[0].sum(dim=1), torch.full((c,), float(p), device=e.device))
+    slack = torch.zeros(c * 256, dtype=torch.float64, device=e.device)
+    for side in (k - 1, k):
+        slack.index_add_(0, (side.long() + rows)[edge], e[edge].double())
+    err = (hk[2].double() - hp[2].double()).abs().reshape(-1)
+    assert bool((err <= 1e-4 * hp[2].double().abs().reshape(-1) + 1e-6 + slack).all())
+    if not bool(edge.any()):
+        assert torch.equal(hk[0], hp[0]) and torch.equal(hk[1], hp[1])
+    return int((hk[:2] != hp[:2]).any(dim=0).sum()), edge
+
+
+# odd P (3 x 37 x 91 = 10,101), C = 5 and 10, ignore 255 and bf16, and the
+# train batch's [8, 128, 256, 10]
+REGION_CASES = [((3, 37, 91), 5, None, torch.float32), ((3, 37, 91), 10, 255, torch.float32),
+                ((2, 19, 33), 10, None, torch.bfloat16), ((1, 7, 13), 5, 255, torch.bfloat16),
+                ((8, 128, 256), 10, None, torch.float32)]
+
+
+@pytest.mark.parametrize("shape,c,ignore,dtype", REGION_CASES)
+def test_lovasz_logits_kernels_match_plain(card, shape, c, ignore, dtype):
+    from tpuseg_torch.ops import lovasz
+
+    x, t = _region_inputs(shape, c, ignore, dtype, 21)
+    before = dict(kernels.launches)
+    hk = lovasz.lovasz_logits_histograms(x, t, ignore)
+    vk, gk = lovasz.lovasz_logits_grad(x, t, hk, ignore)
+    assert kernels.launches["lovasz_logits_histograms"] == before["lovasz_logits_histograms"] + 1
+    assert kernels.launches["lovasz_logits_grad"] == before["lovasz_logits_grad"] + 1
+    _, edge = _hold_histograms(hk, x, t, ignore)
+    # the same histograms through the plain gradient: equal to 1e-6 of the
+    # largest magnitude wherever the pixel's bins agree (no class at an edge)
+    vp, gp = lovasz.lovasz_logits_grad_plain(x, t, hk, ignore)
+    assert gk.dtype == torch.float32 and gk.shape == x.shape
+    agree = ~edge.any(dim=0).reshape(x.shape[:-1])
+    diff = (gk - gp).abs()[agree]
+    assert float(diff.max()) <= 1e-6 * float(gp.abs().max())
+    assert abs(float(vk) - float(vp)) <= 1e-6
+    # the whole plain route from the logits: the value within the error
+    # sums' tolerance
+    v_plain, _ = lovasz.lovasz_logits_grad_plain(
+        x, t, lovasz.lovasz_logits_histograms_plain(x, t, ignore), ignore)
+    assert abs(float(vk) - float(v_plain)) <= 1e-4
+    # counts and fg sums, and so the gradient, repeat bit for bit
+    again = lovasz.lovasz_logits_histograms(x, t, ignore)
+    assert torch.equal(again[:2], hk[:2])
+    assert torch.equal(lovasz.lovasz_logits_grad(x, t, again, ignore)[1], gk)
+
+
+def test_lovasz_logits_counts_stay_exact_past_2_24_pixels(card):
+    """2**24 + 3 pixels of 2 classes, all in one bin per class: the counts
+    and fg sums are the exact totals rounded once (2**24 + 4), as the plain
+    version's, and the gradient matches the plain one on them."""
+    from tpuseg_torch.ops import lovasz
+
+    p = (1 << 24) + 3
+    x = torch.zeros((1, 1, p, 2), device="cuda")
+    x[..., 1] = 2.0                            # e = 0.8808 for both classes: bin 225
+    t = torch.zeros((1, 1, p), dtype=torch.int64, device="cuda")
+    hk = lovasz.lovasz_logits_histograms(x, t)
+    hp = lovasz.lovasz_logits_histograms_plain(x, t)
+    assert torch.equal(hk[:2], hp[:2])
+    assert float(hk[0, 0, 225]) == float(np.float32(p)) == float(hk[1, 0, 225])
+    assert float(hk[0, 1, 225]) == float(np.float32(p)) and float(hk[1, 1].sum()) == 0.0
+    vk, gk = lovasz.lovasz_logits_grad(x, t, hk)
+    vp, gp = lovasz.lovasz_logits_grad_plain(x, t, hk)
+    assert float((gk - gp).abs().max()) <= 1e-6 * float(gp.abs().max())
+    assert abs(float(vk) - float(vp)) <= 1e-6
+
+
+def test_lovasz_logits_take_a_strided_slab_of_targets_in_place(card):
+    """The spatial step's targets are an H-slab of the labels (a batch
+    stride of the whole image): the kernels read them in place, with the
+    results of their contiguous copy."""
+    from tpuseg_torch.ops import lovasz
+
+    x, t = _region_inputs((2, 16, 24), 10, 255, torch.float32, 22)
+    xs, ts = x[:, 4:12].contiguous(), t[:, 4:12]
+    assert not ts.is_contiguous()
+    copies = dict(lovasz.layout_copies)
+    a = lovasz.lovasz_logits_parts(xs, ts, None, False, 255)
+    assert lovasz.layout_copies == copies
+    b = lovasz.lovasz_logits_parts(xs, ts.contiguous(), None, False, 255)
+    assert torch.equal(a[1][:2], b[1][:2]) and torch.equal(a[2], b[2])
+
+
+def test_lovasz_logits_op_on_the_card(card):
+    """The one-card loss and make_sharded_lovasz over one rank launch the
+    two kernels once each per call, and their backward gives the kernel's
+    gradient."""
+    from tpuseg_torch.core.mesh import create_mesh
+    from tpuseg_torch.ops import lovasz
+    from tpuseg_torch.train.loss import lovasz_softmax_loss
+
+    x, t = _region_inputs((2, 32, 64), 10, None, torch.float32, 23)
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    kernels.reset_launches()
+    va = lovasz_softmax_loss(a, t, bins=256)
+    vb = lovasz.make_sharded_lovasz(create_mesh())(b, t)
+    (va + vb).backward()
+    assert kernels.launches["lovasz_logits_histograms"] == 2
+    assert kernels.launches["lovasz_logits_grad"] == 2
+    assert kernels.launches["lovasz_histograms"] == kernels.launches["lovasz_lookup"] == 0
+    _, gk = lovasz.lovasz_logits_grad(x, t, lovasz.lovasz_logits_histograms(x, t))
+    assert torch.equal(a.grad, gk) and torch.equal(b.grad, gk)
+
+
+def test_lovasz_logits_wrappers_reject_what_the_kernels_do_not_take(card):
+    from tpuseg_torch.ops import lovasz
+
+    x, t = _region_inputs((1, 4, 8), 5, None, torch.float32, 24)
+    hist = lovasz.lovasz_logits_histograms(x, t)
+    with pytest.raises(TypeError):
+        lovasz.lovasz_logits_histograms(x.double(), t)
+    with pytest.raises(TypeError):
+        lovasz.lovasz_logits_grad(x.half(), t, hist)
+    with pytest.raises(ValueError):
+        lovasz.lovasz_logits_histograms(torch.zeros((1, 4, 8, 33), device="cuda"), t)
+    with pytest.raises(ValueError):
+        lovasz.lovasz_logits_grad(x, t, hist[:, :4])
+    with pytest.raises(ValueError):
+        lovasz.lovasz_logits_grad(x, t, hist.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        lovasz.lovasz_logits_histograms(x, t.cpu())
+
 # the encoder's 17 blocks at batch 8, 256x128: (H, W, Cin, hidden, Cout,
 # stride, use_res, expand, batch), then odd H at stride 2, W off the 8-wide
 # tile, no expand at stride 2, one output pixel, batch 1 at a 4x8 image with
@@ -611,6 +776,30 @@ def test_sharded_lovasz_on_two_ranks_sharing_the_card(card):
         assert abs(v - float(value)) <= 1e-4
         assert np.abs(g - grad[rows].cpu().numpy()).max() <= 1e-6
 
+
+
+def test_fused_lovasz_on_two_ranks_sharing_the_card(card):
+    """The fused region at the train shape, two ranks on this card over
+    gloo: each rank launches both fused kernels once on its 4 rows; the
+    global histograms' counts and fg sums are bit-equal to the one-process
+    fused route's (exact sums), the value within its error sums' 1e-4, each
+    rank's gradient within 1e-6 of its rows of the one-process gradient."""
+    from tests import torch_port_mesh_ranks as ranks
+    from tpuseg_torch.core.mesh import launch_local
+    from tpuseg_torch.ops import lovasz
+
+    rng = np.random.RandomState(1)
+    logits = (rng.randn(8, 128, 256, 10) * 2).astype(np.float32)
+    targets = rng.randint(0, 10, (8, 128, 256))
+    value, hist, grad = lovasz.lovasz_logits_parts(
+        torch.from_numpy(logits).cuda(), torch.from_numpy(targets).cuda(), None, False, None)
+    out = launch_local(ranks.fused_lovasz_card, 2, device="cuda", timeout_s=300,
+                       args=(logits, targets))
+    for v, h, g, rows, launched in out:
+        assert launched == {"lovasz_logits_histograms": 1, "lovasz_logits_grad": 1}
+        assert np.array_equal(h[:2], hist[:2].cpu().numpy())
+        assert abs(v - float(value)) <= 1e-4
+        assert np.abs(g - grad[rows].cpu().numpy()).max() <= 1e-6
 
 # the flagship's int8 conv shapes at batch 8, 256x128 (the dense 3x3 up1 at
 # K = 12,096, a stride-2 stem, a depthwise 3x3 at stride 2, a 1x1, a

@@ -395,6 +395,23 @@ def sharded_lovasz_card(device, logits, targets):
             {k: v for k, v in kernels.launches.items() if v})
 
 
+
+def fused_lovasz_card(device, logits, targets):
+    """The fused Lovász region on this rank's rows, on the card (two ranks
+    sharing one over gloo): (value, global histograms, grad, rows,
+    launches)."""
+    from tpuseg_torch.ops import kernels
+    from tpuseg_torch.ops.lovasz import lovasz_logits_parts
+
+    mesh = create_mesh(2, 1)
+    rows = batch_slice(mesh, logits.shape[0])[0]
+    kernels.reset_launches()
+    value, hist, grad = lovasz_logits_parts(
+        torch.from_numpy(logits[rows]).to(device), torch.from_numpy(targets[rows]).to(device),
+        mesh, False, None)
+    return (float(value), hist.cpu().numpy(), grad.cpu().numpy(), rows,
+            {k: v for k, v in kernels.launches.items() if v})
+
 def qat_distill(device, state: dict, teacher_state: dict, batches, base_filters: int,
                 lr: float):
     """f64 train steps of a UNet over a world-2 data mesh with QAT on and a
@@ -422,3 +439,14 @@ def qat_distill(device, state: dict, teacher_state: dict, batches, base_filters:
     losses = [float(step(torch.from_numpy(x), torch.from_numpy(y))["loss"])
               for x, y in batches]
     return losses, {k: v.numpy() for k, v in model.state_dict().items()}, params_digest(model)
+
+
+def idle_or_trained(device, argv):
+    """``tpuseg_torch.main`` on this rank: 0 where the mesh leaves the rank
+    idle, else its losses and the digest of its trained state."""
+    from tpuseg_torch.main import main
+
+    out = main(["--platform=cpu", *argv])
+    if out == 0:
+        return 0
+    return dict(losses=out.step_losses, trained=params_digest(out.model), mesh=str(out.mesh))

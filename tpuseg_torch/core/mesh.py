@@ -9,9 +9,12 @@ of the default process group, one group for the whole mesh and one for
 each axis through this rank, so a collective over "data" or "spatial"
 runs inside the ranks of that axis, as ``psum`` over an axis name does.
 
-The JAX mesh may leave devices idle (``data * spatial`` below the device
-count); a rank with no work has no counterpart here, so the world size must
-equal ``data * spatial`` (ROADMAP.md C11).
+The mesh takes the first ``data * spatial`` ranks, as JAX's ``create_mesh``
+takes the first ``data * spatial`` devices and leaves the rest idle: its
+collectives run over those ranks' own group, and a rank beyond them gets a
+mesh marked ``idle`` that belongs to no group (it still creates every
+group, since creating one is collective over the default group);
+``tpuseg_torch.main`` returns on such a rank without training.
 
 Backends: NCCL when each rank has a card of its own, gloo when the ranks
 share a card or run on the CPU (``choose_backend``). gloo stages a CUDA
@@ -80,6 +83,7 @@ class Mesh:
     group: Optional[Any] = None
     data_group: Optional[Any] = None
     spatial_group: Optional[Any] = None
+    idle: bool = False      # a rank beyond data x spatial: in no group, no work
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -113,10 +117,11 @@ def _new_group(ranks: List[int], world: int):
 
 
 def create_mesh(data: int = -1, spatial: int = 1) -> Mesh:
-    """The ``(data, spatial)`` mesh over the default process group's ranks
-    (one rank when no group is initialized). ``data=-1`` takes every rank
-    that ``spatial`` leaves. Every rank must call it, in the same order as
-    any other group creation."""
+    """The ``(data, spatial)`` mesh over the first ``data * spatial`` ranks of
+    the default process group (one rank when no group is initialized);
+    ``data=-1`` takes every rank that ``spatial`` leaves. A rank beyond the
+    mesh gets one marked ``idle``. Every rank must call it, in the same
+    order as any other group creation."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if spatial <= 0:
@@ -125,26 +130,22 @@ def create_mesh(data: int = -1, spatial: int = 1) -> Mesh:
         if n % spatial != 0:
             raise ValueError(f"{n} devices not divisible by spatial={spatial}")
         data = n // spatial
-    if data * spatial > n:
-        raise ValueError(f"mesh {data}x{spatial} needs {data * spatial} devices, have {n}")
-    if data * spatial != n:
-        raise ValueError(
-            f"mesh {data}x{spatial} uses {data * spatial} of {n} ranks: the port runs "
-            "only when the world size equals data x spatial (a rank with no work has "
-            "no counterpart; ROADMAP.md C11)")
-    mesh = Mesh(data, spatial, rank, dist.get_backend() if dist.is_initialized() else "")
+    size = data * spatial
+    if size > n:
+        raise ValueError(f"mesh {data}x{spatial} needs {size} devices, have {n}")
+    mesh = Mesh(data, spatial, rank, dist.get_backend() if dist.is_initialized() else "",
+                idle=rank >= size)
     if n == 1:
         return mesh
-    mesh.group = dist.group.WORLD
-    # every rank creates every group, in one order (new_group is collective)
-    for j in range(spatial):
-        g = _new_group([i * spatial + j for i in range(data)], n)
-        if j == mesh.coords["spatial"]:
-            mesh.data_group = g
-    for i in range(data):
-        g = _new_group([i * spatial + j for j in range(spatial)], n)
-        if i == mesh.coords["data"]:
-            mesh.spatial_group = g
+    # every rank creates every group, in one order (new_group is collective),
+    # an idle rank too; it keeps none of them
+    groups = [_new_group(list(range(size)), n)]
+    groups += [_new_group([i * spatial + j for i in range(data)], n) for j in range(spatial)]
+    groups += [_new_group([i * spatial + j for j in range(spatial)], n) for i in range(data)]
+    if not mesh.idle:
+        mesh.group = groups[0]
+        mesh.data_group = groups[1 + mesh.coords["spatial"]]
+        mesh.spatial_group = groups[1 + spatial + mesh.coords["data"]]
     return mesh
 
 

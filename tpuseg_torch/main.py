@@ -19,7 +19,9 @@ Each rank joins torchrun's process group (NCCL when every rank has a card
 of its own, gloo when they share one or run on the CPU;
 ``core.mesh.maybe_initialize_distributed``), and ``--mesh.data=-1`` takes
 every rank. One process (no torchrun, ``--mesh.data`` -1 or 1) trains as
-before.
+before. A mesh smaller than the world takes the first ``data x spatial``
+ranks, as the JAX package's mesh takes the first devices; a rank beyond
+it logs that it has no work and ``main`` returns 0 there.
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ def default_sources(cfg):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Train as configured; returns the Trainer."""
+    """Train as configured; returns the Trainer (0 on a rank that the mesh
+    leaves idle)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     import torch.distributed as dist
 
@@ -94,8 +97,19 @@ def main(argv: Optional[Sequence[str]] = None):
 
 def _train(cfg, device):
     import torch
+    import torch.distributed as dist
 
+    from tpuseg_torch.core.mesh import create_mesh
     from tpuseg_torch.train.trainer import Trainer
+
+    mesh = None
+    if dist.is_initialized():
+        mesh = create_mesh(cfg.mesh.data, cfg.mesh.spatial)
+        if mesh.idle:
+            logging.getLogger(__name__).info(
+                "rank %d has no work: the %dx%d mesh takes ranks 0-%d of %d", mesh.rank,
+                mesh.data, mesh.spatial, mesh.size - 1, dist.get_world_size())
+            return 0
 
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
@@ -112,7 +126,8 @@ def _train(cfg, device):
               "    python -m tpuseg_torch.tools.import_pretrained --pth mobilenet_v2.pth "
               "--out pretrained/mnv2\n"
               "then pass --train.init_checkpoint=pretrained/mnv2")
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=device) if mesh is None else Trainer(cfg, device=device,
+                                                                       mesh=mesh)
     trainer.train()
     return trainer
 

@@ -69,6 +69,8 @@ launches: Dict[str, int] = {
     "fused_upsample_concat_conv": 0,
     "lovasz_histograms": 0,     # tpuseg_torch/ops/lovasz.py
     "lovasz_lookup": 0,
+    "lovasz_logits_histograms": 0,
+    "lovasz_logits_grad": 0,
     "fused_inverted_residual": 0,   # tpuseg_torch/ops/mbconv.py
 }
 
@@ -90,12 +92,18 @@ _SIGNATURES = {
     "lovasz_histograms": ("tpuseg_lovasz_histograms", [_P, _P, _P, _P, _I, _LL, _I, _P]),
     "lovasz_hist_plan": ("tpuseg_lovasz_hist_plan", [_I, _LL, _I, _P]),
     "lovasz_lookup": ("tpuseg_lovasz_lookup", [_P, _P, _P, _I, _LL, _I, _P]),
+    "lovasz_logits_plan": ("tpuseg_lovasz_logits_plan", [_I, _LL, _I, _P]),
+    "lovasz_logits_histograms": ("tpuseg_lovasz_logits_histograms",
+                                 [_P] * 4 + [_I, _LL, _LL, _LL, _I, _LL, _I, _I, _P]),
+    "lovasz_logits_grad": ("tpuseg_lovasz_logits_grad",
+                           [_P] * 5 + [_I, _LL, _LL, _LL, _I, _LL, _I, _I, _P]),
     "mbconv": ("tpuseg_mbconv", [_P] * 11 + [_I] * 10 + [_P]),
     "mbconv_plan": ("tpuseg_mbconv_plan", [_I] * 9 + [_P, _P]),
 }
 # symbols that live in another source's library
 _LIBRARY = {"mbconv_plan": "mbconv", "upconcat_plan": "upconcat_conv",
-            "lovasz_hist_plan": "lovasz_histograms"}
+            "lovasz_hist_plan": "lovasz_histograms", "lovasz_logits_plan": "lovasz_logits",
+            "lovasz_logits_histograms": "lovasz_logits", "lovasz_logits_grad": "lovasz_logits"}
 
 
 @functools.lru_cache(maxsize=None)

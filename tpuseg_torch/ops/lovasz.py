@@ -1,49 +1,53 @@
-"""The sort-free Lovász-softmax loss's two CUDA kernels, their plain
-versions, and the autograd op built on them.
+"""The sort-free Lovász-softmax loss: its CUDA kernels, their plain
+versions, and the autograd ops built on them.
 
 The port of ``tpuseg/ops/lovasz_pallas.py``:
 
-==================  ===========================  ========================
-wrapper             CUDA source (tpuseg_torch/)  plain PyTorch version
-==================  ===========================  ========================
-lovasz_histograms   csrc/lovasz_histograms.cu    lovasz_histograms_plain
-lovasz_lookup       csrc/lovasz_lookup.cu        lovasz_lookup_plain
-==================  ===========================  ========================
+========================  ===========================  ===============================
+wrapper                   CUDA source (tpuseg_torch/)  plain PyTorch version
+========================  ===========================  ===============================
+lovasz_logits_histograms  csrc/lovasz_logits.cu        lovasz_logits_histograms_plain
+lovasz_logits_grad        csrc/lovasz_logits.cu        lovasz_logits_grad_plain
+lovasz_histograms         csrc/lovasz_histograms.cu    lovasz_histograms_plain
+lovasz_lookup             csrc/lovasz_lookup.cu        lovasz_lookup_plain
+========================  ===========================  ===============================
 
-``lovasz_binned_kernel(errors, fg)`` is ``lovasz_binned_pallas``: the
-histograms give per-bin Lovász coefficients (``coefficients``, plain
-tensor ops on [C, 256]) and the loss value; the lookup gives each pixel's
-coefficient w, which is the gradient d loss / d errors.
+The training paths run the region of ``lovasz_pallas.make_sharded_lovasz``
+from the logits to their gradient as two fused kernels
+(``lovasz_logits_parts``): ``lovasz_logits_histograms`` reads the logits
+and targets once and gives the [3, C, 256] histograms (count, fg sum,
+error sum); over ranks one all_reduce sums them; ``lovasz_logits_grad``
+computes the per-bin coefficients and the loss value in one block, then
+recomputes each pixel's softmax and writes the closed-form logits
+gradient. No [C, P] plane is ever written. ``make_sharded_lovasz(mesh)``
+and, on one card, ``lovasz_logits_loss`` (``lovasz_softmax_loss`` at 256
+bins) are the same autograd op: forward runs both kernels and saves the
+gradient, backward returns g times it.
 
-The binning is the TPU kernel's, on both routes: a pixel's bin is
+The two plane kernels are the ports of the TPU kernels themselves
+(``_histograms`` and ``_lookup``) and take [C, P] error and foreground
+planes: ``lovasz_binned_kernel(errors, fg)`` is ``lovasz_binned_pallas``,
+and ``sharded_lovasz_parts`` composes the region from them (or from their
+plain versions) as the port ran it before the fused kernels. No training
+path runs them now; they stay, and are held against the fused route.
+
+The binning is the TPU kernel's, on every route: a pixel's bin is
 ``clip(trunc(e * 256), 0, 255)``, so e = 1.0 falls in bin 255, and a
 pixel with e < 0 enters no bin. (The JAX package's XLA scan,
 ``tpuseg/train/loss.py::_binned_lovasz``, gives e = 1.0 a level of its
 own; the two agree wherever no error is exactly 1.0.)
 
-``make_sharded_lovasz(mesh)`` is the multi-rank form, the port of
-``lovasz_pallas.make_sharded_lovasz``: each rank bins its block of the
-global batch with the same two kernels, one all_reduce of the [3, C, 256]
-histograms makes them global, and the logits gradient is computed in
-closed form (``sharded_lovasz_parts``, which takes the two functions it
-bins and looks up with: the kernels, or their plain versions for holding
-the kernels' route against them).
-
 Dispatch goes by the tensor's device, as in ``ops/kernels.py``: a CPU
 tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. Each launch adds one to ``kernels.launches[<wrapper name>]``.
-
-Both kernels are bound by the bytes of the [C, P] planes. The histogram
-kernel loads e and fg as float4s, several per thread in flight, and adds
-into 32 lane-private copies of the histograms in shared memory, so the
-lanes of a warp never collide; its grid fills the card's resident slots
-once (``lovasz_hist_plan``, the kernel's own rule, from the SM count).
+The kernels' designs and bounds are in their sources' headers.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+import functools
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -208,24 +212,17 @@ def lovasz_binned_plain(errors: torch.Tensor, fg: torch.Tensor) -> torch.Tensor:
     return _LovaszBinned.apply(errors, fg, lovasz_histograms_plain, lovasz_lookup_plain)
 
 
+
+
 # ---------------------------------------------------------------------------
-# the sharded op: local kernels, one all_reduce, the closed-form gradient
+# the region from the logits: the [C, P] planes and the closed-form gradient
 
 
-def sharded_lovasz_parts(logits: torch.Tensor, targets: torch.Tensor, mesh, spatial: bool,
-                         ignore_index: Optional[int], histograms, lookup):
-    """(value, coef, grad) of the Lovász over the mesh's global batch, from
-    this rank's block of logits [b, h, w, C] and targets [b, h, w]: the
-    region of ``lovasz_pallas.make_sharded_lovasz``, step by step.
-
-    The local [C, P] planes give local histograms; ONE all_reduce of the
-    three, stacked into one [3, C, 256] buffer, over the data axis (the
-    whole mesh with ``spatial``) makes them the global batch's; the
-    coefficients and the value follow on every rank alike; the local
-    lookup gives w, and the logits gradient is the closed-form softmax
-    chain dL/dz_k = wt_k p_k - p_k sum_c wt_c p_c with
-    wt = w sign(p - fg) valid, the product autodiff would build from
-    sum |fg - p| * w with w held constant."""
+def _planes(logits: torch.Tensor, targets: torch.Tensor, ignore_index: Optional[int]):
+    """(probs [b,h,w,C], pr [C, P], fg [C, P], errors [C, P], valid [1, P] or
+    None) of this block of logits and targets: the plain steps of the
+    region of ``lovasz_pallas.make_sharded_lovasz`` before its kernels. fg
+    and errors are contiguous, with ignored pixels at error 0 and label 0."""
     dtype = torch.promote_types(logits.dtype, torch.float32)
     c = logits.shape[-1]
     probs = torch.exp(torch.log_softmax(logits.to(dtype), dim=-1))
@@ -239,30 +236,193 @@ def sharded_lovasz_parts(logits: torch.Tensor, targets: torch.Tensor, mesh, spat
         valid = (targets != ignore_index).to(dtype).reshape(1, -1)
         fg = fg * valid
         errors = errors * valid
-    errors, fg = errors.contiguous(), fg.contiguous()
-    hist = torch.stack(histograms(errors, fg))                # [3, C, 256]
-    all_reduce_(hist, mesh, None if mesh is None else mesh.axis_group(spatial))
-    coef, value = coefficients(hist[0], hist[1], hist[2])
-    w = lookup(errors, coef.contiguous())                     # [C, P]
+    return probs, pr, fg.contiguous(), errors.contiguous(), valid
+
+
+def _closed_form(w, pr, fg, valid, probs) -> torch.Tensor:
+    """dL/dz_k = wt_k p_k - p_k sum_c wt_c p_c with wt = w sign(p - fg)
+    valid: the product autodiff builds from sum |fg - p| * w, w constant.
+    The class sum runs in class order, a fixed order the fused kernel
+    repeats (torch.sum's order depends on the layout and the build)."""
     wt = w * torch.sign(pr - fg)
     if valid is not None:
         wt = wt * valid
     wp = wt.t().reshape(probs.shape) * probs
-    grad = wp - probs * wp.sum(dim=-1, keepdim=True)
-    return value, coef, grad
+    total = wp[..., 0]
+    for k in range(1, wp.shape[-1]):
+        total = total + wp[..., k]
+    return wp - probs * total[..., None]
 
 
-class _ShardedLovasz(torch.autograd.Function):
+def sharded_lovasz_parts(logits: torch.Tensor, targets: torch.Tensor, mesh, spatial: bool,
+                         ignore_index: Optional[int], histograms, lookup):
+    """(value, coef, grad) of the Lovász over the mesh's global batch, from
+    this rank's block of logits [b, h, w, C] and targets [b, h, w], composed
+    of the plane kernels ``histograms`` and ``lookup`` (or their plain
+    versions): the region of ``lovasz_pallas.make_sharded_lovasz`` step by
+    step, as the port ran it before the fused kernels. The training paths
+    run ``lovasz_logits_parts``; this composition stays to hold the plane
+    kernels and the fused route against each other.
+
+    The local [C, P] planes give local histograms; ONE all_reduce of the
+    three, stacked into one [3, C, 256] buffer, over the data axis (the
+    whole mesh with ``spatial``) makes them the global batch's; the
+    coefficients and the value follow on every rank alike; the local
+    lookup gives w, and the logits gradient is the closed form."""
+    probs, pr, fg, errors, valid = _planes(logits, targets, ignore_index)
+    hist = torch.stack(histograms(errors, fg))                # [3, C, 256]
+    all_reduce_(hist, mesh, None if mesh is None else mesh.axis_group(spatial))
+    coef, value = coefficients(hist[0], hist[1], hist[2])
+    w = lookup(errors, coef.contiguous())                     # [C, P]
+    return value, coef, _closed_form(w, pr, fg, valid, probs)
+
+
+def lovasz_logits_histograms_plain(logits: torch.Tensor, targets: torch.Tensor,
+                                   ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Plain version: the [3, C, 256] histograms (count, fg sum, error sum)
+    of this block of logits [b, h, w, C] and targets [b, h, w]."""
+    _, _, fg, errors, _ = _planes(logits, targets, ignore_index)
+    return torch.stack(lovasz_histograms_plain(errors, fg))
+
+
+def lovasz_logits_grad_plain(logits: torch.Tensor, targets: torch.Tensor, hist: torch.Tensor,
+                             ignore_index: Optional[int] = None):
+    """Plain version: (value, logits gradient [b, h, w, C]) from the global
+    histograms ``hist`` [3, C, 256] and this block's logits and targets."""
+    probs, pr, fg, errors, valid = _planes(logits, targets, ignore_index)
+    coef, value = coefficients(hist[0], hist[1], hist[2])
+    w = lovasz_lookup_plain(errors, coef.contiguous())
+    return value, _closed_form(w, pr, fg, valid, probs)
+
+
+# copies the fused wrappers made of logits or targets whose layout the
+# kernels do not take (every training path gives them one they take)
+layout_copies: Dict[str, int] = {"logits": 0, "targets": 0}
+MAX_CLASSES = 32
+
+
+def _check_region(logits: torch.Tensor, targets: torch.Tensor) -> None:
+    if logits.ndim != 4:
+        raise ValueError(f"logits must be [B, H, W, C], got {tuple(logits.shape)}")
+    if tuple(targets.shape) != tuple(logits.shape[:-1]):
+        raise ValueError(f"targets {tuple(targets.shape)} must be the logits' "
+                         f"{tuple(logits.shape[:-1])}")
+
+
+def _card_layout(logits: torch.Tensor, targets: torch.Tensor):
+    """(logits contiguous [P, C] rows, int64 targets with H and W dense,
+    pixels per image, the targets' batch stride) for the fused kernels,
+    copying only what the kernels cannot read in place."""
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"logits must be torch.float32 or torch.bfloat16, got {logits.dtype}")
+    b, h, w, c = logits.shape
+    if not 1 <= c <= MAX_CLASSES:
+        raise ValueError(f"the fused Lovász kernels take 1..{MAX_CLASSES} classes, got {c}")
+    if not logits.is_contiguous():
+        logits = logits.contiguous()
+        layout_copies["logits"] += 1
+    dense = (w == 1 or targets.stride(2) == 1) and (h == 1 or targets.stride(1) == w)
+    if targets.dtype != torch.int64 or not dense:
+        targets = targets.to(torch.int64).contiguous()
+        layout_copies["targets"] += 1
+    bstride = targets.stride(0) if b > 1 else h * w
+    return logits, targets, h * w, bstride
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def lovasz_logits_plan(c: int, p: int, sms: int) -> int:
+    """Histogram blocks for C classes of P pixels on a card with ``sms`` SMs,
+    by the kernel's own rule (``tpuseg_lovasz_logits_plan``): two resident
+    on each SM, and each under 2**23 pixels (its float counts exact)."""
+    nblk = ctypes.c_int()
+    rc = _c_fn("lovasz_logits_plan")(c, p, sms, ctypes.byref(nblk))
+    if rc != 0:
+        raise RuntimeError(f"lovasz logits plan failed: CUDA error {rc}")
+    return nblk.value
+
+
+def _ignore_args(ignore_index: Optional[int]):
+    return (0, 0) if ignore_index is None else (1, int(ignore_index))
+
+
+def lovasz_logits_histograms(logits: torch.Tensor, targets: torch.Tensor,
+                             ignore_index: Optional[int] = None) -> torch.Tensor:
+    """The [3, C, 256] histograms (count, fg sum, error sum) of this block
+    of logits [b, h, w, C] and targets [b, h, w], straight from the logits.
+    On a CUDA tensor the fused kernel reads each pixel's logits once (f32
+    or bf16, up to 32 classes); its counts and fg sums are the exact totals
+    rounded once to f32, its error sums integer sums of each error's offset
+    in its bin (in units of 2**-40), so every call repeats bit for bit."""
+    _check_region(logits, targets)
+    if not _on_cuda(logits, targets):
+        return lovasz_logits_histograms_plain(logits, targets, ignore_index)
+    lg, tg, hw, bstride = _card_layout(logits, targets)
+    c = lg.shape[-1]
+    p = lg.numel() // c
+    nblk = lovasz_logits_plan(c, p, _sms(lg.device))
+    partial = torch.empty((nblk, 3, c, NB), dtype=torch.float32, device=lg.device)
+    hist = torch.empty((3, c, NB), dtype=torch.float32, device=lg.device)
+    _launch("lovasz_logits_histograms", lg.device, lg.data_ptr(), tg.data_ptr(),
+            partial.data_ptr(), hist.data_ptr(), c, p, hw, bstride,
+            *_ignore_args(ignore_index), nblk, int(lg.dtype == torch.bfloat16))
+    launches["lovasz_logits_histograms"] += 1
+    return hist
+
+
+def lovasz_logits_grad(logits: torch.Tensor, targets: torch.Tensor, hist: torch.Tensor,
+                       ignore_index: Optional[int] = None):
+    """(value, f32 logits gradient [b, h, w, C]) from the global histograms
+    ``hist`` [3, C, 256] and this block's logits and targets. On a CUDA
+    tensor every block of the fused kernel computes the coefficients from
+    ``hist`` (block 0 the value too), then recomputes each pixel's softmax
+    and writes its gradient."""
+    _check_region(logits, targets)
+    c = logits.shape[-1]
+    if tuple(hist.shape) != (3, c, NB):
+        raise ValueError(f"hist must be [3, {c}, {NB}], got {tuple(hist.shape)}")
+    if not _on_cuda(logits, targets, hist):
+        return lovasz_logits_grad_plain(logits, targets, hist, ignore_index)
+    _require_contiguous(hist=hist)
+    lg, tg, hw, bstride = _card_layout(logits, targets)
+    p = lg.numel() // c
+    nblk = max(1, min(2 * _sms(lg.device), -(-p // (_THREADS * 4))))
+    value = torch.empty((), dtype=torch.float32, device=lg.device)
+    grad = torch.empty(lg.shape, dtype=torch.float32, device=lg.device)
+    _launch("lovasz_logits_grad", lg.device, lg.data_ptr(), tg.data_ptr(), hist.data_ptr(),
+            value.data_ptr(), grad.data_ptr(), c, p, hw, bstride,
+            *_ignore_args(ignore_index), nblk, int(lg.dtype == torch.bfloat16))
+    launches["lovasz_logits_grad"] += 1
+    return value, grad
+
+
+def lovasz_logits_parts(logits: torch.Tensor, targets: torch.Tensor, mesh, spatial: bool,
+                        ignore_index: Optional[int], histograms=lovasz_logits_histograms,
+                        grad=lovasz_logits_grad):
+    """(value, hist, grad) of the Lovász over the mesh's global batch (this
+    block's alone with no mesh): the local histograms, ONE all_reduce of
+    them over the data axis (the whole mesh with ``spatial``), then the
+    value and this block's logits gradient from the global histograms."""
+    hist = histograms(logits, targets, ignore_index)
+    all_reduce_(hist, mesh, None if mesh is None else mesh.axis_group(spatial))
+    value, g = grad(logits, targets, hist, ignore_index)
+    return value, hist, g
+
+
+class _LovaszLogits(torch.autograd.Function):
     """The value of the global batch's Lovász (alike on every rank); in
     backward, g times this rank's closed-form logits gradient. Nothing is
     all-reduced in backward: the parameter gradients are summed in the
     train step."""
 
     @staticmethod
-    def forward(ctx, logits, targets, mesh, spatial, ignore_index, histograms, lookup):
-        value, _, grad = sharded_lovasz_parts(logits, targets, mesh, spatial, ignore_index,
-                                              histograms, lookup)
-        ctx.save_for_backward(grad)
+    def forward(ctx, logits, targets, mesh, spatial, ignore_index, histograms, grad):
+        value, _, g = lovasz_logits_parts(logits, targets, mesh, spatial, ignore_index,
+                                          histograms, grad)
+        ctx.save_for_backward(g)
         ctx.logits_dtype = logits.dtype
         return value
 
@@ -272,6 +432,22 @@ class _ShardedLovasz(torch.autograd.Function):
         return (g * grad).to(ctx.logits_dtype), None, None, None, None, None, None
 
 
+def lovasz_logits_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       ignore_index: Optional[int] = None) -> torch.Tensor:
+    """The binned Lovász-softmax of one card's logits [B, H, W, C] and
+    targets: a scalar whose backward gives the logits their closed-form
+    gradient (the fused kernels on a CUDA tensor, no all_reduce)."""
+    return _LovaszLogits.apply(logits, targets, None, False, ignore_index,
+                               lovasz_logits_histograms, lovasz_logits_grad)
+
+
+def lovasz_logits_loss_plain(logits: torch.Tensor, targets: torch.Tensor,
+                             ignore_index: Optional[int] = None) -> torch.Tensor:
+    """The same op built on the plain versions, on any device."""
+    return _LovaszLogits.apply(logits, targets, None, False, ignore_index,
+                               lovasz_logits_histograms_plain, lovasz_logits_grad_plain)
+
+
 def make_sharded_lovasz(mesh, spatial: bool = False,
                         ignore_index: Optional[int] = None) -> Callable:
     """The multi-rank Lovász at the logits level, the port of
@@ -279,10 +455,10 @@ def make_sharded_lovasz(mesh, spatial: bool = False,
     on this rank's block of the global batch (rows on "data", and H on
     "spatial" with ``spatial``), whose value is the global batch's and whose
     backward gives this rank's logits their gradient of it. On a CUDA
-    tensor the two kernels run on the local planes; on a CPU tensor their
-    plain versions."""
+    tensor the two fused kernels run around the one all_reduce; on a CPU
+    tensor their plain versions."""
     def fn(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        return _ShardedLovasz.apply(logits, targets, mesh, bool(spatial), ignore_index,
-                                    lovasz_histograms, lovasz_lookup)
+        return _LovaszLogits.apply(logits, targets, mesh, bool(spatial), ignore_index,
+                                   lovasz_logits_histograms, lovasz_logits_grad)
 
     return fn

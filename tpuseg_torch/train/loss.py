@@ -9,9 +9,11 @@ view. Logits are promoted to at least float32 (float64 stays float64).
   ``label_smoothing`` and ``ignore_index``;
 - ``focal`` and ``dice``;
 - ``lovasz`` in three forms, chosen by ``bins``: 0 is the exact sort; 256
-  is the histogram op of ``tpuseg_torch.ops.lovasz`` (the CUDA kernels on
-  a CUDA tensor, their plain versions on a CPU tensor); any other positive
-  count is the level-set formulation of ``_binned_lovasz``;
+  is the histogram op of ``tpuseg_torch.ops.lovasz`` from the logits
+  (``lovasz_logits_loss``: the two fused CUDA kernels on a CUDA tensor,
+  their plain versions on a CPU tensor, and the closed-form logits
+  gradient in backward); any other positive count is the level-set
+  formulation of ``_binned_lovasz``;
 - ``ce+dice`` and ``ce+lovasz``.
 
 The JAX package's ``TPUSEG_LOVASZ_PALLAS`` switch is a TPU-only knob and
@@ -48,7 +50,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from tpuseg_torch.core.mesh import gather_blocks, sum_across
-from tpuseg_torch.ops.lovasz import NB, lovasz_binned_kernel, make_sharded_lovasz
+from tpuseg_torch.ops.lovasz import NB, lovasz_logits_loss, make_sharded_lovasz
 
 
 def _prep(logits: torch.Tensor, targets: torch.Tensor):
@@ -218,9 +220,9 @@ def lovasz_softmax_loss(logits, targets, ignore_index: Optional[int] = None,
                         bins: int = 0) -> torch.Tensor:
     """Lovász-softmax loss (Berman et al., CVPR 2018), classes="present",
     the batch flattened per class."""
-    errors, fg = lovasz_errors(logits, targets, ignore_index)
     if bins == NB:
-        return lovasz_binned_kernel(errors, fg)
+        return lovasz_logits_loss(logits, targets, ignore_index)
+    errors, fg = lovasz_errors(logits, targets, ignore_index)
     if bins > 0:
         return _binned_lovasz(errors, fg, bins)
     return _lovasz_exact(errors, fg)

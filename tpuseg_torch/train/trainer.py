@@ -63,7 +63,7 @@ import torch.distributed as dist
 from tpuseg_torch.configs import Config
 from tpuseg_torch.core.checkpoint import CheckpointManager
 from tpuseg_torch.core.dtypes import resolve_device
-from tpuseg_torch.core.mesh import all_reduce_, create_mesh, replicate
+from tpuseg_torch.core.mesh import Mesh, all_reduce_, create_mesh, replicate
 from tpuseg_torch.data.augment import make_augment_fn
 from tpuseg_torch.data.class_stats import resolve_auto_class_weights
 from tpuseg_torch.data.combined import CombinedDataset
@@ -89,12 +89,21 @@ def _loss_list(loss: torch.Tensor) -> List[float]:
 
 def trainer_mesh(cfg: Config):
     """The Trainer's mesh: None for one process (``--mesh.data`` -1 or 1,
-    ``--mesh.spatial`` 1 and no process group, or a group of one rank),
-    else ``create_mesh`` over the process group, which raises when the
-    ranks do not make ``data x spatial``."""
+    ``--mesh.spatial`` 1 and no process group, or a mesh of one rank),
+    else ``create_mesh`` over the process group's first ``data x spatial``
+    ranks, which raises when there are fewer."""
     if not dist.is_initialized() and cfg.mesh.data in (-1, 1) and cfg.mesh.spatial <= 1:
         return None
-    mesh = create_mesh(cfg.mesh.data, cfg.mesh.spatial)
+    return _active_mesh(create_mesh(cfg.mesh.data, cfg.mesh.spatial))
+
+
+def _active_mesh(mesh: Mesh) -> Optional[Mesh]:
+    """``mesh`` when it has more than one rank, else None; a rank that the
+    mesh leaves idle has nothing to train (``tpuseg_torch.main`` returns
+    there before building a Trainer)."""
+    if mesh.idle:
+        raise ValueError(f"rank {mesh.rank} is outside the {mesh.data}x{mesh.spatial} mesh: "
+                         "it has no work")
     return mesh if mesh.size > 1 else None
 
 
@@ -102,10 +111,11 @@ class Trainer:
     """Wires config -> pipeline, model, optimizer, steps; runs train/eval."""
 
     def __init__(self, cfg: Config, combined: Optional[CombinedDataset] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.mesh = trainer_mesh(cfg)
+        # ``mesh``: one already created for this rank (``tpuseg_torch.main``)
+        self.mesh = trainer_mesh(cfg) if mesh is None else _active_mesh(mesh)
         self._writes = self.mesh is None or self.mesh.rank == 0
         if self.mesh is not None and self.mesh.rank == 0:
             log.info("mesh: %s", self.mesh)
