@@ -77,8 +77,8 @@ printing one JSON line; any failure raises and exits nonzero:
              3 steps, for --train.loss=lovasz (with and without remat) and
              for adamw + cosine warmup + grad_accum 2 + clip + EMA
              (parameters, BatchNorm statistics, optimizer state, EMA,
-             generator; losses bit-equal, the Lovász value within its
-             atomics' tolerance); the Trainer's flip+ms eval over a padded
+             generator; losses bit-equal, the Lovász value too); the
+             Trainer's flip+ms eval over a padded
              last batch equal to eager; steps_per_dispatch=4 equal to 8
              captured single steps; every serve_ab route and every HTTP
              bucket captured bit-equal to eager; the Predictor's graph cache
@@ -102,6 +102,18 @@ printing one JSON line; any failure raises and exits nonzero:
              against one built on the plain versions, under deterministic
              algorithms: the replayed steps' gradients (read after each
              replay) and the final parameters bit-equal;
+6b. many_classes — more than 32 classes on the fused Lovász path: both
+             kernels held by hold_region at 33, 66 (f32, ignore 255, bf16
+             logits) and 150 classes at the train batch's pixels and at
+             1,100 on a [1, 16, 32] image, repeating bit-equal; the pair
+             timed at [8,128,256,66] and the sweep's [64,128,256,66] (held
+             there too), and each of its device kernels
+             (torch.profiler); the one-card loss region at 66
+             classes, old route and fused in turns, at batch 8 and 64; the
+             flagship at --model.num_classes=66 --train.loss=ce+lovasz
+             trained 20 captured steps through ``tpuseg_torch.main`` (the
+             loss falls, each fused kernel once a step), 3 captured steps
+             bit-equal to eager, and 3 bf16 steps;
 7. train_packed — 1024 synthetic scenes packed at 256x128 with
              ``tpuseg_torch.tools.pack_dataset`` (every packed sample
              bit-equal to the source; the native gather loaded, a batch of
@@ -799,12 +811,12 @@ HIST_OPS, GRAD_OPS = 10, 14
 LOSS_REGION_SHAPES = {"batch8": (BATCH, *MODEL_HW), "sweep_batch64": (64, *MODEL_HW)}
 
 
-def region_inputs(shape, seed: int, ignore=None):
-    """Seeded logits [*shape, C] (scale 2) and int64 labels on the card;
-    with ``ignore``, the first 3 columns of every row carry it."""
+def region_inputs(shape, seed: int, ignore=None, classes: int = CLASSES):
+    """Seeded logits [*shape, classes] (scale 2) and int64 labels on the
+    card; with ``ignore``, the first 3 columns of every row carry it."""
     g = make_generator(seed, "cuda")
-    x = torch.randn((*shape, CLASSES), generator=g, device="cuda") * 2.0
-    t = torch.randint(0, CLASSES, tuple(shape), generator=g, device="cuda")
+    x = torch.randn((*shape, classes), generator=g, device="cuda") * 2.0
+    t = torch.randint(0, classes, tuple(shape), generator=g, device="cuda")
     if ignore is not None:
         t[..., :3] = ignore
     return x, t
@@ -863,12 +875,13 @@ def hold_region(x, t, hk, vk, gk, what: str, ignore=None) -> dict:
     return out
 
 
-def fused_region_check(shape, seed: int, what: str, ignore=None, dtype=torch.float32) -> dict:
-    """Both fused kernels at logits [*shape, C] held by hold_region, their
-    counts, fg sums and gradient repeating bit for bit."""
+def fused_region_check(shape, seed: int, what: str, ignore=None, dtype=torch.float32,
+                       classes: int = CLASSES) -> dict:
+    """Both fused kernels at logits [*shape, classes] held by hold_region,
+    their counts, fg sums and gradient repeating bit for bit."""
     from tpuseg_torch.ops import lovasz
 
-    x, t = region_inputs(shape, seed, ignore)
+    x, t = region_inputs(shape, seed, ignore, classes)
     x = x.to(dtype)
     hk = lovasz.lovasz_logits_histograms(x, t, ignore)
     vk, gk = lovasz.lovasz_logits_grad(x, t, hk, ignore)
@@ -879,13 +892,13 @@ def fused_region_check(shape, seed: int, what: str, ignore=None, dtype=torch.flo
         raise AssertionError(f"{what}: repeated fused Lovász calls differ")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out.update(repeat_bit_equal=True,
-               blocks=lovasz.lovasz_logits_plan(CLASSES, x.numel() // CLASSES, sms))
+               blocks=lovasz.lovasz_logits_plan(classes, x.numel() // classes, sms))
     return out
 
 
-def loss_region_ms(shape) -> dict:
+def loss_region_ms(shape, classes: int = CLASSES) -> dict:
     """Device ms of the one-card Lovász region, forward and backward,
-    captured, on logits [*shape, C]: the route before the fused kernels
+    captured, on logits [*shape, classes]: the route before the fused kernels
     (the [C, P] planes, the plane kernels, autograd through the softmax)
     and the fused op, in turns (old, fused, fused, old)."""
     from tpuseg_torch.ops.lovasz import lovasz_binned_kernel, lovasz_logits_loss
@@ -902,32 +915,28 @@ def loss_region_ms(shape) -> dict:
     n = math.prod(shape)
 
     def make(i):
-        x, t = region_inputs(shape, 900 + i)
+        x, t = region_inputs(shape, 900 + i, classes=classes)
         return x.requires_grad_(True), t
 
-    ins = copies(make, n * CLASSES * 4 + n * 8)
+    ins = copies(make, n * classes * 4 + n * 8)
     runs = {"old": [], "fused": []}
     for label in ("old", "fused", "fused", "old"):
         runs[label].append(device_ms(old if label == "old" else fused, ins, replays=10))
     del ins
-    return {"shape": [CLASSES, n], "old_ms": runs["old"], "fused_ms": runs["fused"],
+    return {"shape": [classes, n], "old_ms": runs["old"], "fused_ms": runs["fused"],
             "saved_ms": min(runs["old"]) - max(runs["fused"])}
 
 
-def lovasz_logits_rows():
-    """The fused region's two kernels at the train batch's [8,128,256,10]
-    against their plain versions (hold_region: f32, ignore 255, bf16
-    logits), timed beside the plain versions; then the one-card loss
-    region at LOSS_REGION_SHAPES, old route and fused in turns."""
+def fused_pair_rows(classes: int, checks: dict, seed: int, shape=(BATCH, *MODEL_HW)) -> dict:
+    """The fused pair at logits [*shape, classes] (the train batch's by
+    default), timed beside its plain versions, with its bound and
+    ``checks``."""
     from tpuseg_torch.ops import lovasz
 
-    shape = (BATCH, *MODEL_HW)
-    checks = {"f32": fused_region_check(shape, 410, "kernels"),
-              "ignore_255": fused_region_check(shape, 411, "kernels", ignore=255),
-              "bf16": fused_region_check(shape, 412, "kernels", dtype=torch.bfloat16)}
     n = math.prod(shape)
-    logit_bytes, target_bytes, hist_bytes = n * CLASSES * 4, n * 8, 3 * CLASSES * 256 * 4
-    ins = copies(lambda i: region_inputs(shape, 420 + i), logit_bytes + target_bytes)
+    logit_bytes, target_bytes, hist_bytes = n * classes * 4, n * 8, 3 * classes * 256 * 4
+    ins = copies(lambda i: region_inputs(shape, seed + i, classes=classes),
+                 logit_bytes + target_bytes)
     grad_ins = [(x, t, lovasz.lovasz_logits_histograms(x, t)) for x, t in ins]
     library = "none: no one PyTorch call computes the region's histograms or gradient"
     rows = {
@@ -935,18 +944,31 @@ def lovasz_logits_rows():
             max_abs_err=checks["f32"]["errsum_max_abs_err"], checks=checks,
             ms=device_ms(lovasz.lovasz_logits_histograms, ins),
             plain_ms=device_ms(lovasz.lovasz_logits_histograms_plain, ins),
-            library_ms=None, library=library, shape=[*shape, CLASSES]),
+            library_ms=None, library=library, shape=[*shape, classes]),
         "lovasz_logits_grad": dict(
             max_abs_err=checks["f32"]["grad_max_abs_err"],
             ms=device_ms(lovasz.lovasz_logits_grad, grad_ins),
             plain_ms=device_ms(lovasz.lovasz_logits_grad_plain, grad_ins),
-            library_ms=None, library=library, shape=[*shape, CLASSES]),
+            library_ms=None, library=library, shape=[*shape, classes]),
     }
     del ins, grad_ins
     rows["lovasz_logits_histograms"]["bound_ms"], rows["lovasz_logits_histograms"][
-        "bound_by"] = bound_ms(logit_bytes + target_bytes + hist_bytes, HIST_OPS * n * CLASSES)
+        "bound_by"] = bound_ms(logit_bytes + target_bytes + hist_bytes, HIST_OPS * n * classes)
     rows["lovasz_logits_grad"]["bound_ms"], rows["lovasz_logits_grad"]["bound_by"] = bound_ms(
-        2 * logit_bytes + target_bytes + hist_bytes, GRAD_OPS * n * CLASSES)
+        2 * logit_bytes + target_bytes + hist_bytes, GRAD_OPS * n * classes)
+    return rows
+
+
+def lovasz_logits_rows():
+    """The fused region's two kernels at the train batch's [8,128,256,10]
+    against their plain versions (hold_region: f32, ignore 255, bf16
+    logits), timed beside the plain versions; then the one-card loss
+    region at LOSS_REGION_SHAPES, old route and fused in turns."""
+    shape = (BATCH, *MODEL_HW)
+    checks = {"f32": fused_region_check(shape, 410, "kernels"),
+              "ignore_255": fused_region_check(shape, 411, "kernels", ignore=255),
+              "bf16": fused_region_check(shape, 412, "kernels", dtype=torch.bfloat16)}
+    rows = fused_pair_rows(CLASSES, checks, 420)
     rows["lovasz_logits_grad"]["loss_region"] = {
         name: loss_region_ms(s) for name, s in LOSS_REGION_SHAPES.items()}
     return rows
@@ -1775,6 +1797,109 @@ def phase_train(perf) -> dict:
            "lovasz_kernels_isolated_ms": kernel_ms,
            "lovasz_kernels_isolated_ms_over_p50_step": kernel_ms / p50,
            "ab": ab}
+    emit(out)
+    return out
+
+
+# the many_classes phase: the flagship at Mapillary Vistas v1.2's 66 labels
+# (ce + lovasz, 256 bins, synthetic scenes: most classes absent, their
+# errors crowded into bin 0); the fused pair held at 33, 66 (f32, ignore
+# 255, bf16 logits) and 150 classes at the train batch's pixels, and at
+# 1,100 on a small image (torch's softmax leaves its warp kernel above 1024)
+MANY_CLASSES, MANY_STEPS, MANY_BF16_STEPS = 66, 20, 3
+MANY_FLAGS = [f"--model.num_classes={MANY_CLASSES}", "--train.loss=ce+lovasz"]
+MANY_CHECKS = {"c33": ((BATCH, *MODEL_HW), 33, None, torch.float32),
+               "c66": ((BATCH, *MODEL_HW), 66, None, torch.float32),
+               "c66_ignore_255": ((BATCH, *MODEL_HW), 66, 255, torch.float32),
+               "c66_bf16": ((BATCH, *MODEL_HW), 66, None, torch.bfloat16),
+               "c150": ((BATCH, *MODEL_HW), 150, None, torch.float32),
+               "c1100": ((1, 16, 32), 1100, None, torch.float32)}
+
+
+def many_classes_run(flags, steps: int) -> tuple:
+    """(trainer, launches) of ``steps`` captured steps of
+    ``tpuseg_torch.main`` at ``flags``: the loss finite, each fused Lovász
+    kernel launched once a step, every step after the first a replay."""
+    from tpuseg_torch.main import main as train_main
+
+    kernels.reset_launches()
+    tr = train_main(flags + ["--train.epochs=1", f"--train.steps_per_epoch={steps}",
+                             "--data.val_split=0", "--train.checkpoint_dir=",
+                             "--train.log_every=0"])
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    want = path_want(**lovasz_want(steps))
+    if counts != want or tr.step != steps or tr.cfg.model.num_classes != MANY_CLASSES \
+            or tr.train_step.replays() != steps - 1 \
+            or not all(map(math.isfinite, tr.step_losses)):
+        raise AssertionError(f"many_classes: {flags}: launches {counts} (want {want}) after "
+                             f"{tr.step} steps, {tr.train_step.replays()} replays, losses "
+                             f"{tr.step_losses}")
+    return tr, counts
+
+
+def wide_kernel_us(classes: int, calls: int = 5) -> dict:
+    """Device us per call of each kernel (and memset) that the fused pair
+    launches at the train batch's [8, 128, 256, classes], from
+    torch.profiler over ``calls`` calls of both wrappers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuseg_torch.ops import lovasz
+
+    x, t = region_inputs((BATCH, *MODEL_HW), 450, classes=classes)
+    lovasz.lovasz_logits_grad(x, t, lovasz.lovasz_logits_histograms(x, t))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            lovasz.lovasz_logits_grad(x, t, lovasz.lovasz_logits_histograms(x, t))
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0].replace("void ", ""): device_time(e) / calls
+            for e in prof.key_averages() if on_device(e) and device_time(e)}
+
+
+def phase_many_classes() -> dict:
+    """More than 32 classes on the fused Lovász path: the kernels held at
+    MANY_CHECKS and timed at [66, 262,144] (each device kernel profiled)
+    and at the sweep's [66, 2,097,152] (held there too), the one-card loss
+    region at 66 classes in turns against the plane route, then the
+    flagship trained at MANY_FLAGS for MANY_STEPS captured steps (the loss
+    falls), 3 captured steps against eager (the state bit-equal), and a
+    bf16 run."""
+    t0 = time.perf_counter()
+    out = {"phase": "many_classes", "classes": MANY_CLASSES, "flags": MANY_FLAGS}
+    checks = {name: fused_region_check(shape, 430 + i, f"many_classes {name}", ignore, dtype,
+                                       classes)
+              for i, (name, (shape, classes, ignore, dtype)) in enumerate(MANY_CHECKS.items())}
+    out["checks"] = checks
+    out["kernels"] = fused_pair_rows(MANY_CLASSES, {"f32": checks["c66"]}, 440)
+    sweep_shape = LOSS_REGION_SHAPES["sweep_batch64"]
+    out["kernels_sweep_batch64"] = fused_pair_rows(
+        MANY_CLASSES, {"f32": fused_region_check(sweep_shape, 441, "many_classes sweep_batch64",
+                                                 classes=MANY_CLASSES)}, 442, sweep_shape)
+    out["kernel_us"] = wide_kernel_us(MANY_CLASSES)
+    out["loss_region"] = {name: loss_region_ms(shape, MANY_CLASSES)
+                          for name, shape in LOSS_REGION_SHAPES.items()}
+
+    tr, counts = many_classes_run(MANY_FLAGS, MANY_STEPS)
+    losses = tr.step_losses
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"many_classes: loss did not fall: first 5 {first}, last 5 {last}")
+    out["train"] = {"launches": counts, "steps": tr.step, "replays": tr.train_step.replays(),
+                    "loss_first5": first, "loss_last5": last, "losses": losses}
+    del tr
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["captured_vs_eager"] = train_ab(MANY_FLAGS, "many_classes", lovasz=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    tr, bf16_counts = many_classes_run(BF16_FLAGS + MANY_FLAGS, MANY_BF16_STEPS)
+    out["bf16"] = {"launches": bf16_counts, "losses": tr.step_losses}
+    del tr
+    out["launches"] = {k: counts[k] + bf16_counts[k] for k in counts}
+    out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
 
@@ -3301,10 +3426,10 @@ def snapshot_diff(a: dict, b: dict) -> dict:
 
 def train_ab(flags, label: str, lovasz: bool) -> dict:
     """Captured against eager, GRAPH_AB_STEPS steps from one seeded state,
-    deterministic algorithms: the state bit-equal. The Lovász loss value
-    sums its error histogram with float atomics, so its low bits move from
-    run to run; it is held to LOVASZ_VALUE_ATOL, and any other loss must be
-    bit-equal."""
+    deterministic algorithms: the state and the losses bit-equal (the fused
+    Lovász kernels sum integers and fixed-point offsets, so their value
+    repeats bit for bit); with ``lovasz``, each fused kernel launches once a
+    step."""
     cap_l, cap_s, replays, cap_n = train_run(flags, GRAPH_AB_STEPS, eager=False)
     eag_l, eag_s, _, eag_n = train_run(flags, GRAPH_AB_STEPS, eager=True)
     row = {"flags": flags, "steps": GRAPH_AB_STEPS, "replays": replays,
@@ -3315,12 +3440,8 @@ def train_ab(flags, label: str, lovasz: bool) -> dict:
     if cap_n != want_n or eag_n != want_n:
         raise AssertionError(f"graphs: {label} launches {cap_n} captured, {eag_n} eager, "
                              f"want {want_n}")
-    if lovasz:
-        row["max_loss_diff"] = max(abs(a - b) for a, b in zip(cap_l, eag_l))
-        loss_ok = row["max_loss_diff"] <= LOVASZ_VALUE_ATOL
-    else:
-        loss_ok = cap_l == eag_l
-    if row["state"]["n_differ"] or not loss_ok or replays != GRAPH_AB_STEPS - 1:
+    row["max_loss_diff"] = max(abs(a - b) for a, b in zip(cap_l, eag_l))
+    if row["state"]["n_differ"] or cap_l != eag_l or replays != GRAPH_AB_STEPS - 1:
         raise AssertionError(f"graphs: captured and eager {label} steps differ: {row}")
     return row
 
@@ -4154,6 +4275,7 @@ def main() -> int:
         phase_graphs(pth, frames)
         export = phase_export(pth, frames)
     train = phase_train(perf)
+    many = phase_many_classes()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as packed_dir:
         packed = phase_train_packed(train, packed_dir)
         contact = phase_train_contact(packed_dir)
@@ -4164,7 +4286,7 @@ def main() -> int:
     sweep = phase_sweep()
     spatial_launches = [r["launches"] for r in spatial["train"]] + \
         spatial["combined"]["launches_per_rank"]
-    train_counts = {k: train["launches"][k] + packed["launches"][k]
+    train_counts = {k: train["launches"][k] + many["launches"][k] + packed["launches"][k]
                     + sum(r["launches"].get(k, 0) for r in mesh["train"])
                     + sum(r.get(k, 0) for r in spatial_launches)
                     + bf16["path_launches"][k] + contact["launches"][k] + sweep["launches"][k]
@@ -4209,7 +4331,8 @@ def main() -> int:
             "bound_fp32_ms": dec["bound_fp32_ms"],
             "per_call_ms": {k: r["ms"] for k, r in dec["per_call"].items()}},
         "lovasz_logits_grad": {"make_sharded_lovasz": region,
-                               "loss_region": perf["lovasz_logits_grad"]["loss_region"]}}
+                               "loss_region": perf["lovasz_logits_grad"]["loss_region"],
+                               f"loss_region_{MANY_CLASSES}": many["loss_region"]}}
     for k, r in bf16["kernels"].items():
         extra.setdefault(k, {}).update(
             {f"bf16_{f}": r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -4223,6 +4346,13 @@ def main() -> int:
                     "sweep_shape_check": sweep["lovasz_shape"]}
     for k in PATH_LOVASZ:
         extra.setdefault(k, {}).update({
+            f"classes_{MANY_CLASSES}": {
+                **{f: many["kernels"][k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms", "max_abs_err", "shape")},
+                "launches": many["launches"][k],
+                "sweep_batch64": {f: many["kernels_sweep_batch64"][k][f]
+                                  for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "max_abs_err", "shape")}},
             "bf16": "unchanged: the models give fp32 logits (bf16 logits checked in the "
                     "kernels phase)",
             "mesh_launches_per_rank": [r["launches"][k] for r in mesh["train"]],

@@ -320,10 +320,16 @@ def _hold_histograms(hk, x, t, ignore):
 
 
 # odd P (3 x 37 x 91 = 10,101), C = 5 and 10, ignore 255 and bf16, and the
-# train batch's [8, 128, 256, 10]
+# train batch's [8, 128, 256, 10]; then past 32 classes (the class-group
+# kernels): 33, 66 with ignore 255 and on bf16 logits, 150 at the train
+# batch's pixels, 66 at odd P, and 1,100 (above torch's warp softmax) on a
+# small image
 REGION_CASES = [((3, 37, 91), 5, None, torch.float32), ((3, 37, 91), 10, 255, torch.float32),
                 ((2, 19, 33), 10, None, torch.bfloat16), ((1, 7, 13), 5, 255, torch.bfloat16),
-                ((8, 128, 256), 10, None, torch.float32)]
+                ((8, 128, 256), 10, None, torch.float32),
+                ((8, 128, 256), 33, None, torch.float32), ((8, 128, 256), 66, 255, torch.float32),
+                ((8, 128, 256), 66, None, torch.bfloat16), ((3, 37, 91), 66, None, torch.float32),
+                ((8, 128, 256), 150, None, torch.float32), ((1, 16, 32), 1100, None, torch.float32)]
 
 
 @pytest.mark.parametrize("shape,c,ignore,dtype", REGION_CASES)
@@ -377,13 +383,14 @@ def test_lovasz_logits_counts_stay_exact_past_2_24_pixels(card):
     assert abs(float(vk) - float(vp)) <= 1e-6
 
 
-def test_lovasz_logits_take_a_strided_slab_of_targets_in_place(card):
+@pytest.mark.parametrize("c", [10, 66])
+def test_lovasz_logits_take_a_strided_slab_of_targets_in_place(card, c):
     """The spatial step's targets are an H-slab of the labels (a batch
     stride of the whole image): the kernels read them in place, with the
     results of their contiguous copy."""
     from tpuseg_torch.ops import lovasz
 
-    x, t = _region_inputs((2, 16, 24), 10, 255, torch.float32, 22)
+    x, t = _region_inputs((2, 16, 24), c, 255, torch.float32, 22)
     xs, ts = x[:, 4:12].contiguous(), t[:, 4:12]
     assert not ts.is_contiguous()
     copies = dict(lovasz.layout_copies)
@@ -393,7 +400,8 @@ def test_lovasz_logits_take_a_strided_slab_of_targets_in_place(card):
     assert torch.equal(a[1][:2], b[1][:2]) and torch.equal(a[2], b[2])
 
 
-def test_lovasz_logits_op_on_the_card(card):
+@pytest.mark.parametrize("c", [10, 66])
+def test_lovasz_logits_op_on_the_card(card, c):
     """The one-card loss and make_sharded_lovasz over one rank launch the
     two kernels once each per call, and their backward gives the kernel's
     gradient."""
@@ -401,7 +409,7 @@ def test_lovasz_logits_op_on_the_card(card):
     from tpuseg_torch.ops import lovasz
     from tpuseg_torch.train.loss import lovasz_softmax_loss
 
-    x, t = _region_inputs((2, 32, 64), 10, None, torch.float32, 23)
+    x, t = _region_inputs((2, 32, 64), c, None, torch.float32, 23)
     a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
     kernels.reset_launches()
     va = lovasz_softmax_loss(a, t, bins=256)
@@ -424,7 +432,7 @@ def test_lovasz_logits_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(TypeError):
         lovasz.lovasz_logits_grad(x.half(), t, hist)
     with pytest.raises(ValueError):
-        lovasz.lovasz_logits_histograms(torch.zeros((1, 4, 8, 33), device="cuda"), t)
+        lovasz.lovasz_logits_histograms(torch.zeros((1, 4, 8, 0), device="cuda"), t)
     with pytest.raises(ValueError):
         lovasz.lovasz_logits_grad(x, t, hist[:, :4])
     with pytest.raises(ValueError):
@@ -778,7 +786,8 @@ def test_sharded_lovasz_on_two_ranks_sharing_the_card(card):
 
 
 
-def test_fused_lovasz_on_two_ranks_sharing_the_card(card):
+@pytest.mark.parametrize("c", [10, 66])
+def test_fused_lovasz_on_two_ranks_sharing_the_card(card, c):
     """The fused region at the train shape, two ranks on this card over
     gloo: each rank launches both fused kernels once on its 4 rows; the
     global histograms' counts and fg sums are bit-equal to the one-process
@@ -789,8 +798,8 @@ def test_fused_lovasz_on_two_ranks_sharing_the_card(card):
     from tpuseg_torch.ops import lovasz
 
     rng = np.random.RandomState(1)
-    logits = (rng.randn(8, 128, 256, 10) * 2).astype(np.float32)
-    targets = rng.randint(0, 10, (8, 128, 256))
+    logits = (rng.randn(8, 128, 256, c) * 2).astype(np.float32)
+    targets = rng.randint(0, c, (8, 128, 256))
     value, hist, grad = lovasz.lovasz_logits_parts(
         torch.from_numpy(logits).cuda(), torch.from_numpy(targets).cuda(), None, False, None)
     out = launch_local(ranks.fused_lovasz_card, 2, device="cuda", timeout_s=300,

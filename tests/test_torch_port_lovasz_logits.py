@@ -25,15 +25,20 @@ from jax.sharding import Mesh as JaxMesh
 from tpuseg.ops.lovasz_pallas import (_coefficients, _histograms, _lookup,
                                       lovasz_binned_pallas)
 from tpuseg.ops.lovasz_pallas import make_sharded_lovasz as jax_sharded_lovasz
+from tpuseg.train.loss import make_loss_fn as jax_make_loss_fn
 from tpuseg_torch.core.mesh import create_mesh
 from tpuseg_torch.ops import lovasz
 from tpuseg_torch.ops.kernels import launches
-from tpuseg_torch.train.loss import lovasz_softmax_loss
+from tpuseg_torch.train.loss import lovasz_softmax_loss, make_loss_fn
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64}
-# (classes, ignore_index, logits dtype): each value of each axis, C = 5 and 10
+# (classes, ignore_index, logits dtype): each value of each axis, C = 5 and
+# 10; then 66 with ignore 255 and on bf16 logits, past the 32 classes above
+# which the card runs the class-group kernels (33 and 150 are cases of the
+# tests below: each new class count costs a few seconds of JAX compiles)
 CASES = [(5, None, "float32"), (5, 255, "bfloat16"), (10, None, "float64"),
-         (10, 255, "float32"), (10, 255, "bfloat16"), (5, 255, "float64")]
+         (10, 255, "float32"), (10, 255, "bfloat16"), (5, 255, "float64"),
+         (66, 255, "float32"), (66, None, "bfloat16")]
 
 
 def _inputs(c, ignore, dtype, seed, shape=(2, 8, 12)):
@@ -92,11 +97,13 @@ def test_plain_region_matches_the_jax_region_pieces(c, ignore, dtype):
     np.testing.assert_allclose(grad.numpy(), grad_j, atol=1e-6)
 
 
-@pytest.mark.parametrize("ignore", [None, 255])
-def test_region_matches_jax_make_sharded_lovasz_on_one_device(ignore):
+@pytest.mark.parametrize("c,ignore", [
+    pytest.param(10, None, id="None"), pytest.param(10, 255, id="255"),
+    pytest.param(150, None, id="150-None")])
+def test_region_matches_jax_make_sharded_lovasz_on_one_device(c, ignore):
     """The autograd op against the whole JAX region (shard_map over a 1x1
     mesh, interpret mode): value and d/dlogits."""
-    x, t, x32 = _inputs(10, ignore, "float32", seed=20)
+    x, t, x32 = _inputs(c, ignore, "float32", seed=20)
     mesh = JaxMesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "spatial"))
     fn = jax_sharded_lovasz(mesh, ignore_index=ignore, interpret=True)
     tj = jnp.asarray(t.numpy())
@@ -109,7 +116,8 @@ def test_region_matches_jax_make_sharded_lovasz_on_one_device(ignore):
 
 
 @pytest.mark.parametrize("c,ignore,dtype", [(5, None, "float32"), (10, 255, "float32"),
-                                            (10, None, "bfloat16"), (5, 255, "float64")])
+                                            (10, None, "bfloat16"), (5, 255, "float64"),
+                                            (33, 255, "float32"), (150, None, "float32")])
 def test_one_card_loss_matches_lovasz_binned_pallas(c, ignore, dtype):
     """``lovasz_softmax_loss(bins=256)`` (the fused op, closed-form
     gradient) against ``lovasz_binned_pallas(interpret=True)`` on the
@@ -178,3 +186,21 @@ def test_strided_targets_and_wrapper_checks():
         lovasz.lovasz_logits_histograms(x, t[:, :4])
     with pytest.raises(ValueError, match="hist"):
         lovasz.lovasz_logits_grad(x, t, torch.zeros(3, 4, 256))
+
+
+def test_ce_plus_lovasz_matches_jax_at_66_classes():
+    """The slice's loss as a whole at Mapillary Vistas' 66 classes: the
+    port's ``make_loss_fn("ce+lovasz")`` (CE plus the fused op's plain
+    route) against JAX's on [2, 16, 32, 66] logits, the value at rtol 1e-5 /
+    abs 1e-6 and d/dlogits at atol 1e-6, as tests/test_torch_port_loss.py
+    holds every loss (on the CPU JAX's Lovász at 256 bins is its XLA scan,
+    which agrees with the kernels' binning where no error is exactly 1.0)."""
+    x, t, x32 = _inputs(66, None, "float32", seed=60, shape=(2, 16, 32))
+    tj = jnp.asarray(t.numpy())
+    jfn = jax_make_loss_fn("ce+lovasz")
+    want, g_want = jax.jit(jax.value_and_grad(lambda lg: jfn(lg, tj)))(jnp.asarray(x32))
+    lg = x.clone().requires_grad_(True)
+    got = make_loss_fn("ce+lovasz")(lg, t)
+    got.backward()
+    assert float(got.detach()) == pytest.approx(float(want), rel=1e-5, abs=1e-6)
+    np.testing.assert_allclose(lg.grad.numpy(), np.asarray(g_want), atol=1e-6)

@@ -93,16 +93,18 @@ _SIGNATURES = {
     "lovasz_hist_plan": ("tpuseg_lovasz_hist_plan", [_I, _LL, _I, _P]),
     "lovasz_lookup": ("tpuseg_lovasz_lookup", [_P, _P, _P, _I, _LL, _I, _P]),
     "lovasz_logits_plan": ("tpuseg_lovasz_logits_plan", [_I, _LL, _I, _P]),
+    "lovasz_logits_scratch": ("tpuseg_lovasz_logits_scratch", [_I, _LL, _I, _I, _P]),
     "lovasz_logits_histograms": ("tpuseg_lovasz_logits_histograms",
                                  [_P] * 4 + [_I, _LL, _LL, _LL, _I, _LL, _I, _I, _P]),
     "lovasz_logits_grad": ("tpuseg_lovasz_logits_grad",
-                           [_P] * 5 + [_I, _LL, _LL, _LL, _I, _LL, _I, _I, _P]),
+                           [_P] * 6 + [_I, _LL, _LL, _LL, _I, _LL, _I, _I, _P]),
     "mbconv": ("tpuseg_mbconv", [_P] * 11 + [_I] * 10 + [_P]),
     "mbconv_plan": ("tpuseg_mbconv_plan", [_I] * 9 + [_P, _P]),
 }
 # symbols that live in another source's library
 _LIBRARY = {"mbconv_plan": "mbconv", "upconcat_plan": "upconcat_conv",
             "lovasz_hist_plan": "lovasz_histograms", "lovasz_logits_plan": "lovasz_logits",
+            "lovasz_logits_scratch": "lovasz_logits",
             "lovasz_logits_histograms": "lovasz_logits", "lovasz_logits_grad": "lovasz_logits"}
 
 

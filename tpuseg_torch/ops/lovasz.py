@@ -239,19 +239,39 @@ def _planes(logits: torch.Tensor, targets: torch.Tensor, ignore_index: Optional[
     return probs, pr, fg.contiguous(), errors.contiguous(), valid
 
 
+def _class_sum(wp: torch.Tensor) -> torch.Tensor:
+    """The sum of wp [..., C] over its classes in the fused kernels' fixed
+    order (torch.sum's order depends on the layout and the build). Up to 32
+    classes in class order. Above, in the order of torch's warp softmax sum:
+    lane j of 32 sums classes j, j + 32, ... in order from zero, then the
+    lanes' sums fold pairwise (j + 16 onto j, then j + 8, ...)."""
+    c = wp.shape[-1]
+    if c <= 32:
+        total = wp[..., 0]
+        for k in range(1, c):
+            total = total + wp[..., k]
+        return total
+    rows = -(-c // 32)
+    lanes = torch.nn.functional.pad(wp, (0, 32 * rows - c)).unflatten(-1, (rows, 32))
+    total = torch.zeros_like(lanes[..., 0, :])
+    for i in range(rows):
+        total = total + lanes[..., i, :]
+    width = 16
+    while width:
+        total = total[..., :width] + total[..., width:2 * width]
+        width //= 2
+    return total[..., 0]
+
+
 def _closed_form(w, pr, fg, valid, probs) -> torch.Tensor:
     """dL/dz_k = wt_k p_k - p_k sum_c wt_c p_c with wt = w sign(p - fg)
-    valid: the product autodiff builds from sum |fg - p| * w, w constant.
-    The class sum runs in class order, a fixed order the fused kernel
-    repeats (torch.sum's order depends on the layout and the build)."""
+    valid: the product autodiff builds from sum |fg - p| * w, w constant,
+    its class sum in the fused kernels' order (``_class_sum``)."""
     wt = w * torch.sign(pr - fg)
     if valid is not None:
         wt = wt * valid
     wp = wt.t().reshape(probs.shape) * probs
-    total = wp[..., 0]
-    for k in range(1, wp.shape[-1]):
-        total = total + wp[..., k]
-    return wp - probs * total[..., None]
+    return wp - probs * _class_sum(wp)[..., None]
 
 
 def sharded_lovasz_parts(logits: torch.Tensor, targets: torch.Tensor, mesh, spatial: bool,
@@ -298,7 +318,6 @@ def lovasz_logits_grad_plain(logits: torch.Tensor, targets: torch.Tensor, hist: 
 # copies the fused wrappers made of logits or targets whose layout the
 # kernels do not take (every training path gives them one they take)
 layout_copies: Dict[str, int] = {"logits": 0, "targets": 0}
-MAX_CLASSES = 32
 
 
 def _check_region(logits: torch.Tensor, targets: torch.Tensor) -> None:
@@ -316,8 +335,8 @@ def _card_layout(logits: torch.Tensor, targets: torch.Tensor):
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"logits must be torch.float32 or torch.bfloat16, got {logits.dtype}")
     b, h, w, c = logits.shape
-    if not 1 <= c <= MAX_CLASSES:
-        raise ValueError(f"the fused Lovász kernels take 1..{MAX_CLASSES} classes, got {c}")
+    if c < 1:
+        raise ValueError("the fused Lovász kernels take at least one class, got 0")
     if not logits.is_contiguous():
         logits = logits.contiguous()
         layout_copies["logits"] += 1
@@ -336,13 +355,26 @@ def _sms(device: torch.device) -> int:
 
 def lovasz_logits_plan(c: int, p: int, sms: int) -> int:
     """Histogram blocks for C classes of P pixels on a card with ``sms`` SMs,
-    by the kernel's own rule (``tpuseg_lovasz_logits_plan``): two resident
-    on each SM, and each under 2**23 pixels (its float counts exact)."""
+    by the kernel's own rule (``tpuseg_lovasz_logits_plan``): up to 32
+    classes two resident on each SM, each under 2**23 pixels (its float
+    counts exact); above, the pixel blocks of each class group, the groups'
+    blocks filling the SMs once."""
     nblk = ctypes.c_int()
     rc = _c_fn("lovasz_logits_plan")(c, p, sms, ctypes.byref(nblk))
     if rc != 0:
         raise RuntimeError(f"lovasz logits plan failed: CUDA error {rc}")
     return nblk.value
+
+
+def _scratch(c: int, p: int, nblk: int, grad: bool, device: torch.device) -> torch.Tensor:
+    """The scratch bytes a fused kernel takes (``tpuseg_lovasz_logits_scratch``):
+    the histograms' block partials, or above 32 classes their pixel stats
+    and integer totals; the gradient's coefficient table above 32 classes."""
+    n = ctypes.c_longlong()
+    rc = _c_fn("lovasz_logits_scratch")(c, p, nblk, int(grad), ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"lovasz logits scratch failed: CUDA error {rc}")
+    return torch.empty(n.value, dtype=torch.uint8, device=device)
 
 
 def _ignore_args(ignore_index: Optional[int]):
@@ -353,10 +385,10 @@ def lovasz_logits_histograms(logits: torch.Tensor, targets: torch.Tensor,
                              ignore_index: Optional[int] = None) -> torch.Tensor:
     """The [3, C, 256] histograms (count, fg sum, error sum) of this block
     of logits [b, h, w, C] and targets [b, h, w], straight from the logits.
-    On a CUDA tensor the fused kernel reads each pixel's logits once (f32
-    or bf16, up to 32 classes); its counts and fg sums are the exact totals
-    rounded once to f32, its error sums integer sums of each error's offset
-    in its bin (in units of 2**-40), so every call repeats bit for bit."""
+    On a CUDA tensor the fused kernels read the logits (f32 or bf16, any
+    number of classes); the counts and fg sums are the exact totals rounded
+    once to f32, the error sums integer sums of each error's offset in its
+    bin (in units of 2**-40), so every call repeats bit for bit."""
     _check_region(logits, targets)
     if not _on_cuda(logits, targets):
         return lovasz_logits_histograms_plain(logits, targets, ignore_index)
@@ -364,10 +396,10 @@ def lovasz_logits_histograms(logits: torch.Tensor, targets: torch.Tensor,
     c = lg.shape[-1]
     p = lg.numel() // c
     nblk = lovasz_logits_plan(c, p, _sms(lg.device))
-    partial = torch.empty((nblk, 3, c, NB), dtype=torch.float32, device=lg.device)
+    scratch = _scratch(c, p, nblk, False, lg.device)
     hist = torch.empty((3, c, NB), dtype=torch.float32, device=lg.device)
     _launch("lovasz_logits_histograms", lg.device, lg.data_ptr(), tg.data_ptr(),
-            partial.data_ptr(), hist.data_ptr(), c, p, hw, bstride,
+            scratch.data_ptr(), hist.data_ptr(), c, p, hw, bstride,
             *_ignore_args(ignore_index), nblk, int(lg.dtype == torch.bfloat16))
     launches["lovasz_logits_histograms"] += 1
     return hist
@@ -377,9 +409,10 @@ def lovasz_logits_grad(logits: torch.Tensor, targets: torch.Tensor, hist: torch.
                        ignore_index: Optional[int] = None):
     """(value, f32 logits gradient [b, h, w, C]) from the global histograms
     ``hist`` [3, C, 256] and this block's logits and targets. On a CUDA
-    tensor every block of the fused kernel computes the coefficients from
-    ``hist`` (block 0 the value too), then recomputes each pixel's softmax
-    and writes its gradient."""
+    tensor the coefficients and the value come from ``hist`` (up to 32
+    classes in every block of the fused kernel, above in a kernel of their
+    own), then each pixel's softmax is recomputed and its gradient
+    written."""
     _check_region(logits, targets)
     c = logits.shape[-1]
     if tuple(hist.shape) != (3, c, NB):
@@ -390,10 +423,11 @@ def lovasz_logits_grad(logits: torch.Tensor, targets: torch.Tensor, hist: torch.
     lg, tg, hw, bstride = _card_layout(logits, targets)
     p = lg.numel() // c
     nblk = max(1, min(2 * _sms(lg.device), -(-p // (_THREADS * 4))))
+    scratch = _scratch(c, p, nblk, True, lg.device)
     value = torch.empty((), dtype=torch.float32, device=lg.device)
     grad = torch.empty(lg.shape, dtype=torch.float32, device=lg.device)
     _launch("lovasz_logits_grad", lg.device, lg.data_ptr(), tg.data_ptr(), hist.data_ptr(),
-            value.data_ptr(), grad.data_ptr(), c, p, hw, bstride,
+            scratch.data_ptr(), value.data_ptr(), grad.data_ptr(), c, p, hw, bstride,
             *_ignore_args(ignore_index), nblk, int(lg.dtype == torch.bfloat16))
     launches["lovasz_logits_grad"] += 1
     return value, grad
