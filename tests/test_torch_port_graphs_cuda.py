@@ -165,3 +165,22 @@ def test_predictor_keeps_at_most_max_graphs(card):
     with graphs.eager():
         want = [p(f) for f in frames]
     assert all(np.array_equal(g, w) for g, w in zip(got + [again], want + want[:1]))
+
+
+def test_a_recapture_after_an_eviction_records_one_capture_span(card):
+    import time
+
+    from tpuseg_torch.core import trace
+
+    step = graphs.Captured(lambda x: x * 2.0 + 1.0, "evicted", max_keys=1)
+    first, second = torch.rand(64, device=card), torch.rand(128, device=card)
+    step(first)
+    step(second)                   # drops the first key
+    mark = time.time_ns()
+    with trace.recording():
+        got = step(first).clone()  # captured again
+        step(first)                # and replayed
+    spans = [s.name for s in trace.spans() if s.start_ns >= mark]
+    assert spans.count("graphs.capture") == 1 and step.captures == 3
+    assert spans.count("graphs.replay") == spans.count("graphs.copy_in") == 1
+    assert torch.equal(got, first * 2.0 + 1.0)

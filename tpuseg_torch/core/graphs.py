@@ -29,9 +29,14 @@ Random draws inside ``fn`` come from the generators named in
 the eager call would have drawn from the same generator state, and
 advances the generator as far.
 
-Launch counts: ``tpuseg_torch.ops.kernels.launches`` counts launches
-where the wrappers run. A capture does not launch, so the counts it made
-are taken back, kept with the graph, and added again at every replay.
+Launch counts: ``tpuseg_torch.core.trace.launches`` (re-exported by
+``ops/kernels.py``) counts launches where the wrappers run. A capture
+does not launch, so the counts it made are taken back, kept with the
+graph, and added again at every replay.
+
+Spans (``core/trace.py``): ``graphs.capture`` around a warm-up and its
+capture, ``graphs.copy_in`` around a call's copies into the static inputs
+and ``graphs.replay`` around the replay's enqueue.
 
 Memory: each entry holds its graph's private memory pool (the
 intermediates of ``fn``) and its static inputs and outputs. ``max_keys``
@@ -62,7 +67,8 @@ from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from tpuseg_torch.ops.kernels import launches
+from tpuseg_torch.core import trace
+from tpuseg_torch.core.trace import launches
 
 _local = threading.local()
 
@@ -147,12 +153,15 @@ class Captured:
         key = _key(args)
         entry = self.entries.get(key)
         if entry is None:
-            return self._warm_up_and_capture(key, args, devices.pop())
+            with trace.span("graphs.capture"):
+                return self._warm_up_and_capture(key, args, devices.pop())
         self.entries.move_to_end(key)
-        for static, a in zip(entry.static_args, args):
-            if isinstance(a, torch.Tensor) and a.data_ptr() != static.data_ptr():
-                static.copy_(a)
-        entry.graph.replay()
+        with trace.span("graphs.copy_in"):
+            for static, a in zip(entry.static_args, args):
+                if isinstance(a, torch.Tensor) and a.data_ptr() != static.data_ptr():
+                    static.copy_(a)
+        with trace.span("graphs.replay"):
+            entry.graph.replay()
         self._replays += 1
         for k, n in entry.counts.items():
             launches[k] += n

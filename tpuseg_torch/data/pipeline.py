@@ -13,6 +13,10 @@ Where there is no cache and every picked source has ``load_batch`` (the
 packed memmap), a batch is one gather per source, written straight into
 the pinned buffer (the native GIL-free memcpy where its library loads):
 the same bytes as the per-sample path.
+
+The producer records a ``data.assemble`` span per training batch
+(sampling and the gather into the host buffers; ``core/trace.py``) while
+the thread that consumes the batches records.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from tpuseg_torch.core import trace
 from tpuseg_torch.data.combined import CombinedDataset, WeightedMixSampler
 
 _STOP = object()
@@ -192,9 +197,14 @@ class InputPipeline:
     def train_batches(self, num_steps: int) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         """Stream ``num_steps`` device batches drawn by the weighted sampler."""
 
+        spans = trace.follower()     # the producer's spans follow this thread's
+        nbytes = self.batch_size * self.height * self.width * 4
+
         def produce():
             for _ in range(num_steps):
-                yield self._assemble(self.sampler.sample(self.batch_size))
+                with spans.span("data.assemble", n=nbytes):
+                    batch = self._assemble(self.sampler.sample(self.batch_size))
+                yield batch
 
         for batch in self._stream(produce):
             yield self._put(batch)

@@ -40,6 +40,12 @@ is checked against the effective colorize flag, so ``use_pallas`` (which
 forces colorize on) with ``fetch_pack4`` raises here, where the JAX package
 goes on and unpacks ids that were never packed.
 
+Spans (``core/trace.py``): ``serve.call`` around ``__call__``, with
+``serve.host_resize`` (``preprocess_on_host``), ``serve.upload`` (the
+frames' copy to the device, ``n`` its bytes), ``serve.pass`` (the captured
+pass, enqueued), ``serve.fetch`` (the wait for the pass and the copy of its
+outputs to the host, ``n`` their bytes) and ``serve.finish_host`` inside.
+
 Every family of the registry serves through it, the model built from
 ``model_cfg``; ``light_unet``'s one output channel gives class 0 at every
 pixel, as the JAX Predictor's argmax does.
@@ -82,7 +88,7 @@ import numpy as np
 import torch
 
 from tpuseg_torch.configs import ModelConfig
-from tpuseg_torch.core import graphs
+from tpuseg_torch.core import graphs, trace
 from tpuseg_torch.core.dtypes import resolve_device
 from tpuseg_torch.core.mesh import all_gather, batch_slice, replicate
 from tpuseg_torch.data.augment import normalize_images
@@ -304,7 +310,8 @@ class Predictor:
         mh, mw = self.input_hw
         if not self.preprocess_on_host or frames.shape[1:3] == (mh, mw):
             return frames
-        return host_resize_linear(frames, mh, mw)
+        with trace.span("serve.host_resize"):
+            return host_resize_linear(frames, mh, mw)
 
     def predict_async(self, frames: np.ndarray, out_hw: Optional[Tuple[int, int]] = None):
         """Dispatch without a host sync: the device tensors, (classes,
@@ -324,7 +331,10 @@ class Predictor:
         x = torch.from_numpy(np.ascontiguousarray(self._maybe_host_resize(frames)))
         if self.mesh is not None:
             x = x[batch_slice(self.mesh, x.shape[0])]
-        classes, packed = self._device_forward(x.to(self.device), dev_hw)
+        with trace.span("serve.upload", n=x.nbytes):
+            x = x.to(self.device)
+        with trace.span("serve.pass"):
+            classes, packed = self._device_forward(x, dev_hw)
         if self.mesh is not None:
             classes, packed = (None if t is None else torch.cat(
                 all_gather(t, self.mesh, self.mesh.data_group)) for t in (classes, packed))
@@ -334,18 +344,22 @@ class Predictor:
                     fh: int, fw: int):
         """Fetched device outputs -> the __call__ result at frame size
         (unpack the nibble pairs, then the host nearest upscale)."""
-        if self.fetch_pack4:
-            classes = unpack4_host(classes)
-        if classes.shape[1:] != (fh, fw):
-            classes = resize_nearest_host(classes, fh, fw)
-            packed = None if packed is None else resize_nearest_host(packed, fh, fw)
-        return classes if packed is None else (classes, packed)
+        with trace.span("serve.finish_host"):
+            if self.fetch_pack4:
+                classes = unpack4_host(classes)
+            if classes.shape[1:] != (fh, fw):
+                classes = resize_nearest_host(classes, fh, fw)
+                packed = None if packed is None else resize_nearest_host(packed, fh, fw)
+            return classes if packed is None else (classes, packed)
 
     def __call__(self, frames: np.ndarray):
         """frames: uint8 RGB [B, H, W, 3] -> class maps uint8 [B, H, W]
         (plus packed-BGR uint32 colours when colorize is on)."""
-        out = self.predict_async(frames)
-        classes, packed = out if self.colorize_on_device else (out, None)
-        return self.finish_host(classes.cpu().numpy(),
-                                None if packed is None else packed.cpu().numpy(),
-                                frames.shape[1], frames.shape[2])
+        with trace.span("serve.call"):
+            out = self.predict_async(frames)
+            classes, packed = out if self.colorize_on_device else (out, None)
+            outs = (classes,) if packed is None else (classes, packed)
+            with trace.span("serve.fetch", n=sum(t.nbytes for t in outs)):
+                host = [t.cpu().numpy() for t in outs]
+            return self.finish_host(host[0], host[1] if packed is not None else None,
+                                    frames.shape[1], frames.shape[2])

@@ -34,6 +34,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from tpuseg_torch.core import trace
 from tpuseg_torch.infer.postprocess import require_cv2, cv2_or_none, overlay_predictions
 from tpuseg_torch.infer.predictor import Predictor, host_resize_linear
 from tpuseg_torch.ops.kernels import unpack_colors
@@ -195,40 +196,37 @@ class VideoPipeline:
         stats = {"frames": 0, "cars": 0}
         # Phase attribution (seconds): decode_wait is time blocked on the
         # reader, fetch_wait the wait for the device and its copy to host,
-        # post the host postprocess, write the output encode.
-        phases = {"decode_wait": 0.0, "fetch_wait": 0.0, "post": 0.0, "write": 0.0}
+        # post the host postprocess, write the output encode; each a
+        # ``video.<phase>`` span when the recorder records
+        phases = trace.Totals("video", ("decode_wait", "fetch_wait", "post", "write"))
         pending = deque()   # (frames_bgr, fetch handle, n_valid) in flight
         colorized = pred.colorize_on_device
 
         def flush(entry) -> bool:
             frames_bgr, handle, n_valid = entry
-            t = time.perf_counter()
-            host = fetch.wait(handle)
-            phases["fetch_wait"] += time.perf_counter() - t
-            t = time.perf_counter()
-            out = pred.finish_host(host[0], host[1] if colorized else None,
-                                   *frames_bgr[0].shape[:2])
-            classes, packed = out if colorized else (out, None)
-            closed = None
-            if pred.device_close:
-                # the device packed the road close into bit 0x80
-                closed = classes >= 0x80
-                classes = classes & 0x7F
-            phases["post"] += time.perf_counter() - t
+            with phases.span("fetch_wait"):
+                host = fetch.wait(handle)
+            with phases.span("post"):
+                out = pred.finish_host(host[0], host[1] if colorized else None,
+                                       *frames_bgr[0].shape[:2])
+                classes, packed = out if colorized else (out, None)
+                closed = None
+                if pred.device_close:
+                    # the device packed the road close into bit 0x80
+                    closed = classes >= 0x80
+                    classes = classes & 0x7F
             for i in range(n_valid):
-                t = time.perf_counter()
-                result, det = overlay_predictions(
-                    frames_bgr[i], classes[i],
-                    precolored_bgr=unpack_colors(packed[i]) if colorized else None,
-                    closed_road=closed[i] if closed is not None else None,
-                    **self.post_kwargs)
-                phases["post"] += time.perf_counter() - t
+                with phases.span("post"):
+                    result, det = overlay_predictions(
+                        frames_bgr[i], classes[i],
+                        precolored_bgr=unpack_colors(packed[i]) if colorized else None,
+                        closed_road=closed[i] if closed is not None else None,
+                        **self.post_kwargs)
                 stats["frames"] += 1
                 stats["cars"] += det["cars"]
                 if writer is not None:
-                    t = time.perf_counter()
-                    writer.write(result)
-                    phases["write"] += time.perf_counter() - t
+                    with phases.span("write"):
+                        writer.write(result)
                 if display:
                     import cv2
 
@@ -244,7 +242,7 @@ class VideoPipeline:
             if first is not _STOP:
                 rgb0, fhw0 = self._prepare(first + [first[-1]] * (batch - len(first)))
                 _PinnedFetch.wait(fetch.start(pred.predict_async(rgb0, out_hw=fhw0)))
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
             item, stop = first, False
             while item is not _STOP:
                 frames_bgr = item
@@ -259,13 +257,12 @@ class VideoPipeline:
                     stop = flush(pending.popleft())
                 if stop:
                     break
-                t = time.perf_counter()
-                item = q_in.get()
-                phases["decode_wait"] += time.perf_counter() - t
+                with phases.span("decode_wait"):
+                    item = q_in.get()
             while pending and not stop:
                 stop = flush(pending.popleft())
-            # the clock stops before the teardown
-            dt = time.perf_counter() - t0
+            # the clock (the phases' own) stops before the teardown
+            dt = (time.time_ns() - t0) * 1e-9
         finally:
             stop_reading.set()
             reader.join(timeout=5)
@@ -277,9 +274,10 @@ class VideoPipeline:
                 cv2.destroyAllWindows()
         stats["seconds"] = dt
         stats["fps"] = stats["frames"] / dt if dt > 0 else 0.0
-        stats["phases"] = {k: round(v, 3) for k, v in phases.items()}
+        seconds = phases.seconds
+        stats["phases"] = {k: round(v, 3) for k, v in seconds.items()}
         # the fetch is hidden when its wait is a small share of the run; a
         # run where it is not says more about the transfer than the pipeline
-        stats["tunnel_ok"] = phases["fetch_wait"] <= max(0.05 * dt, 0.05)
-        stats["fps_ex_fetch"] = stats["frames"] / max(dt - phases["fetch_wait"], 1e-6)
+        stats["tunnel_ok"] = seconds["fetch_wait"] <= max(0.05 * dt, 0.05)
+        stats["fps_ex_fetch"] = stats["frames"] / max(dt - seconds["fetch_wait"], 1e-6)
         return stats

@@ -54,31 +54,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the launch counters: ``core/trace.py``, with the port's spans
+from tpuseg_torch.core.trace import launches, reset_launches  # noqa: F401
 from tpuseg_torch.ops.resize import _bilinear_taps, upsample2x_bilinear
-
-# kernel launches per wrapper since the last reset_launches()
-launches: Dict[str, int] = {
-    "argmax_colorize": 0,
-    "upsample2x_argmax": 0,
-    "fused_upsample_concat_conv": 0,
-    "lovasz_histograms": 0,     # tpuseg_torch/ops/lovasz.py
-    "lovasz_lookup": 0,
-    "lovasz_logits_histograms": 0,
-    "lovasz_logits_grad": 0,
-    "fused_inverted_residual": 0,   # tpuseg_torch/ops/mbconv.py
-}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C symbol, argument types (pointers and the stream as void*)

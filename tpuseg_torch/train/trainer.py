@@ -5,10 +5,9 @@ the optimizer chain (``train/optim.py``: adam, adamw or sgd, the cosine
 schedule, the global-norm clip, MultiSteps, EMA), loss, the fused
 augment+train step and the eval step; then the epoch loop with a
 one-dispatch-lagged loss read (the host reads dispatch k-1's losses after
-it has queued dispatch k, so it never waits on an idle card), the
-epoch-end record (eval on the EMA weights when EMA is on, best tracking,
-history.jsonl, TensorBoard scalars, checkpoint), resume, and a checkpoint
-on SIGTERM.
+it has queued dispatch k), the epoch-end record (eval on the EMA weights
+when EMA is on, best tracking, history.jsonl, TensorBoard scalars,
+checkpoint), resume, and a checkpoint on SIGTERM.
 
 On the card every dispatch is a replay of a captured CUDA graph
 (``core/graphs.py``), the counterpart of the JAX package's jitted step:
@@ -17,6 +16,24 @@ per epoch are rounded up to whole groups of K, as in the JAX package.
 ``debug_nans`` runs the steps op by op and raises FloatingPointError on a
 loss or gradient that is not finite; ``profile_dir`` traces ``train()``
 with ``torch.profiler``.
+
+The lag does not overlap the host with the card. The read's copy queues
+behind replay k on the same stream, and on the card the replay's launch
+itself returns only near the end of the graph, so the host waits for the
+newest dispatch (the launch for most of it, the read for the rest): the
+card drains at the end of every dispatch and idles while the host
+collects the next K batches (``PERF.md`` §5, the ``graphs.replay``,
+``train.loss_read`` and ``data.wait`` spans).
+
+Spans (``core/trace.py``), recorded while a profiler records (the
+``profile_dir`` trace holds them): ``train.epoch`` around each epoch;
+inside it ``data.wait`` around each batch the loop waits for (with its
+upload enqueued), ``train.dispatch`` around each dispatch (``train.stack``
+the K batches' stack inside it), ``train.loss_read`` around each read of
+the lagged losses, ``data.stop`` around the producer's shutdown and
+``train.epoch_end`` around the epoch-end record (``train.eval`` and
+``train.checkpoint`` inside it). The loader's producer thread records
+``data.assemble`` per batch.
 
 QAT (``train.qat``) marks the model's conv+BatchNorm convs
 (``ops/fake_quant.py``), which then train fake-quantized; distillation
@@ -61,6 +78,7 @@ import torch
 import torch.distributed as dist
 
 from tpuseg_torch.configs import Config
+from tpuseg_torch.core import trace
 from tpuseg_torch.core.checkpoint import CheckpointManager
 from tpuseg_torch.core.dtypes import resolve_device
 from tpuseg_torch.core.mesh import Mesh, all_reduce_, create_mesh, replicate
@@ -421,34 +439,36 @@ class Trainer:
         profiler = self._start_profiler()
         try:
             for epoch in range(start_epoch, epochs):
-                t0 = time.perf_counter()
-                # a mid-epoch (preemption) checkpoint resumes into its epoch,
-                # at a whole dispatch group
-                done = 0
-                if epoch == start_epoch:
-                    done = min(max(0, self.step - epoch * spe), spe)
-                    done -= done % k
-                steps_this = spe - done
-                if steps_this <= 0:
-                    # resumed exactly at an epoch boundary whose epoch-end never ran
+                with trace.span("train.epoch"):
+                    t0 = time.perf_counter()
+                    # a mid-epoch (preemption) checkpoint resumes into its epoch,
+                    # at a whole dispatch group
+                    done = 0
+                    if epoch == start_epoch:
+                        done = min(max(0, self.step - epoch * spe), spe)
+                        done -= done % k
+                    steps_this = spe - done
+                    if steps_this <= 0:
+                        # resumed exactly at an epoch boundary whose epoch-end never ran
+                        self.epoch = epoch + 1
+                        self._epoch_end(epoch, [], 0.0, 0)
+                        if self._stop_early:
+                            break
+                        continue
+                    losses = self._run_epoch_steps(steps_this, epoch, epochs)
+                    if self._preempted:
+                        if self.ckpt is None:
+                            log.warning("preempted at step %d — no checkpoint_dir set, "
+                                        "progress is lost", self.step)
+                        else:
+                            with trace.span("train.checkpoint"):
+                                self.save_checkpoint()
+                            log.warning("preempted at step %d — checkpoint saved", self.step)
+                        break
                     self.epoch = epoch + 1
-                    self._epoch_end(epoch, [], 0.0, 0)
+                    self._epoch_end(epoch, losses, time.perf_counter() - t0, steps_this)
                     if self._stop_early:
                         break
-                    continue
-                losses = self._run_epoch_steps(steps_this, epoch, epochs)
-                if self._preempted:
-                    if self.ckpt is None:
-                        log.warning("preempted at step %d — no checkpoint_dir set, "
-                                    "progress is lost", self.step)
-                    else:
-                        self.save_checkpoint()
-                        log.warning("preempted at step %d — checkpoint saved", self.step)
-                    break
-                self.epoch = epoch + 1
-                self._epoch_end(epoch, losses, time.perf_counter() - t0, steps_this)
-                if self._stop_early:
-                    break
         finally:
             restore_signal()
             self._stop_profiler(profiler)
@@ -505,74 +525,95 @@ class Trainer:
             except ImportError:  # pragma: no cover
                 pass
         group: List = []
+        it = iter(batches)
         try:
-            for images, masks in batches:
-                group.append((images, masks))
+            for _ in range(steps):
+                with trace.span("data.wait"):
+                    item = next(it, None)
+                if item is None:
+                    break
+                group.append(item)
                 if len(group) < k:
                     continue
-                if k == 1:
-                    metrics = self.train_step(images, masks)
-                else:
-                    metrics = self.train_step(torch.stack([g[0] for g in group]),
-                                              torch.stack([g[1] for g in group]))
+                with trace.span("train.dispatch"):
+                    if k == 1:
+                        metrics = self.train_step(*item)
+                    else:
+                        with trace.span("train.stack"):
+                            stacked = [torch.stack(t) for t in zip(*group)]
+                        # freed now, not at the next dispatch: the next
+                        # batches' uploads reuse their memory
+                        metrics = self.train_step(*stacked)
+                        del stacked
+                    # a replay's loss is the graph's output tensor, which the
+                    # next replay overwrites: keep a copy (queued before that
+                    # replay)
+                    loss = metrics["loss"].clone()
                 group = []
                 self.step += k
                 if pending is not None:
-                    losses.extend(_loss_list(pending))
-                # a replay's loss is the graph's output tensor, which the next
-                # replay overwrites: keep a copy (queued before that replay)
-                pending = metrics["loss"].clone()
+                    with trace.span("train.loss_read"):
+                        losses.extend(_loss_list(pending))
+                pending = loss
                 if cfg.log_every and self.step % cfg.log_every < k and losses and self._writes:
                     log.info("step %d | loss %.4f", self.step, losses[-1])
                 if self._preempted_everywhere():
                     break
         finally:
             # stop the producer before anything reads the sampler's state
-            batch_gen.close()
+            with trace.span("data.stop"):
+                batch_gen.close()
+                if batches is not batch_gen:
+                    batches.close()
         if pending is not None:
-            losses.extend(_loss_list(pending))
+            with trace.span("train.loss_read"):
+                losses.extend(_loss_list(pending))
         self.step_losses.extend(losses)
         return losses
 
     def _epoch_end(self, epoch: int, losses: list, dt: float, steps_this: int) -> None:
         """Epoch record + eval + best tracking + early stop + checkpoint."""
-        cfg = self.cfg.train
-        rec = {
-            "epoch": epoch + 1,
-            "step": self.step,
-            "train_loss": float(np.mean(losses)) if losses else float("nan"),
-            "imgs_per_sec": steps_this * cfg.batch_size / max(dt, 1e-9),
-            "seconds": dt,
-        }
-        if (self.combined.val_size > 0 and cfg.eval_every_epochs
-                and (epoch + 1) % cfg.eval_every_epochs == 0):
-            rec.update(self.evaluate())
-            miou = rec.get("val_miou")
-            if miou is not None and cfg.early_stop_patience > 0:
-                if miou > self._es_best + cfg.early_stop_min_delta:
-                    self._es_best, self._es_stale = miou, 0
-                else:
-                    self._es_stale += 1
-                    if self._es_stale >= cfg.early_stop_patience:
-                        self._stop_early = True
-                        rec["early_stop"] = True
-            if miou is not None and miou > self._best_miou:
-                self._best_miou = miou
-                rec["best"] = True
-                if cfg.checkpoint_dir and self._writes:
-                    with open(os.path.join(cfg.checkpoint_dir, "best.json"), "w") as f:
-                        json.dump({"step": self.step, "val_miou": miou}, f)
-                if self.best_ckpt is not None:
-                    self.best_ckpt.save(self.step, self._checkpoint_payload())
-        self.history.append(rec)
-        if self._writes:
-            log.info("%s", json.dumps(rec))
-        if self._history_path and self._writes:
-            with open(self._history_path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
-        self._tb_scalars(rec)
-        if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
-            self.save_checkpoint()
+        with trace.span("train.epoch_end"):
+            cfg = self.cfg.train
+            rec = {
+                "epoch": epoch + 1,
+                "step": self.step,
+                "train_loss": float(np.mean(losses)) if losses else float("nan"),
+                "imgs_per_sec": steps_this * cfg.batch_size / max(dt, 1e-9),
+                "seconds": dt,
+            }
+            if (self.combined.val_size > 0 and cfg.eval_every_epochs
+                    and (epoch + 1) % cfg.eval_every_epochs == 0):
+                with trace.span("train.eval"):
+                    rec.update(self.evaluate())
+                miou = rec.get("val_miou")
+                if miou is not None and cfg.early_stop_patience > 0:
+                    if miou > self._es_best + cfg.early_stop_min_delta:
+                        self._es_best, self._es_stale = miou, 0
+                    else:
+                        self._es_stale += 1
+                        if self._es_stale >= cfg.early_stop_patience:
+                            self._stop_early = True
+                            rec["early_stop"] = True
+                if miou is not None and miou > self._best_miou:
+                    self._best_miou = miou
+                    rec["best"] = True
+                    if cfg.checkpoint_dir and self._writes:
+                        with open(os.path.join(cfg.checkpoint_dir, "best.json"), "w") as f:
+                            json.dump({"step": self.step, "val_miou": miou}, f)
+                    if self.best_ckpt is not None:
+                        with trace.span("train.checkpoint"):
+                            self.best_ckpt.save(self.step, self._checkpoint_payload())
+            self.history.append(rec)
+            if self._writes:
+                log.info("%s", json.dumps(rec))
+            if self._history_path and self._writes:
+                with open(self._history_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+            self._tb_scalars(rec)
+            if cfg.save_every_epochs and (epoch + 1) % cfg.save_every_epochs == 0:
+                with trace.span("train.checkpoint"):
+                    self.save_checkpoint()
 
     @contextlib.contextmanager
     def _eval_weights(self) -> Iterator[None]:
