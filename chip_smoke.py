@@ -8,7 +8,7 @@ $CUDA_HOME or /usr/local/cuda, and PyTorch built for CUDA. Phases, each
 printing one JSON line; any failure raises and exits nonzero:
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit;
-2. build   — nvcc builds the seven kernel sources in tpuseg_torch/csrc (one
+2. build   — nvcc builds the eight kernel sources in tpuseg_torch/csrc (one
              process each, in parallel) into build/kernels; ptxas's
              register, shared-memory and spill report;
 3. kernels — each kernel against its plain PyTorch version at the serving
@@ -36,6 +36,18 @@ printing one JSON line; any failure raises and exits nonzero:
              [C, P] planes, the plane kernels, autograd through the
              softmax) and the fused op in turns, at [10, 262,144] and the
              sweep's [10, 2,097,152];
+3b. upsample — the cascaded x2 upsample pair (ops/upsample.py) at the
+             cells' shapes (DeepLab's x4 logits [32,64,128,66] f32 and x8
+             ASPP [32,8,16,256] bf16, the UNet head [64,64,128,10] and
+             [16,256,512,10], align_corners=True): the forward bit-equal to
+             the plain version, the backward repeating bit-equal and beside
+             autograd of the plain version, one launch a call; forward,
+             backward and the pair timed beside the bytes bound, the plain
+             version and F.interpolate(scale_factor=2, bilinear) per x2
+             step; then the launches of DeepLab's and the flagship's
+             captured train steps through ``tpuseg_torch.main`` (2 and 13
+             each way a step) and of served passes on the kernel, the
+             materialized and the subpixel decoder routes (1, 5 and 13);
 4. serve   — the full-width mobilenetv2_unet (10 classes, 256x128, batch 8,
              --model.use_pallas=true --model.up_subpixel=false) served
              through the port's Predictor on 360x640 frames, with the launch
@@ -376,6 +388,9 @@ REPLACES = {
     "lovasz_logits_histograms": "tpuseg/ops/lovasz_pallas.py:238",
     "lovasz_logits_grad": "tpuseg/ops/lovasz_pallas.py:238",
     "fused_inverted_residual": "tpuseg/ops/pallas_mbconv.py:136",
+    # no TPU kernel: the JAX package's cascade is plain XLA
+    "upsample_pow2": "none (tpuseg/ops/resize.py:up_pow2_bilinear, plain XLA)",
+    "upsample_pow2_grad": "none (autograd of tpuseg/ops/resize.py:up_pow2_bilinear)",
 }
 SOURCES = {
     "argmax_colorize": "tpuseg_torch/csrc/argmax_colorize.cu",
@@ -386,6 +401,8 @@ SOURCES = {
     "lovasz_logits_histograms": "tpuseg_torch/csrc/lovasz_logits.cu",
     "lovasz_logits_grad": "tpuseg_torch/csrc/lovasz_logits.cu",
     "fused_inverted_residual": "tpuseg_torch/csrc/mbconv.cu",
+    "upsample_pow2": "tpuseg_torch/csrc/upsample_pow2.cu",
+    "upsample_pow2_grad": "tpuseg_torch/csrc/upsample_pow2.cu",
 }
 # the Lovász kernels that the training paths launch, each once a step (the
 # plane kernels lovasz_histograms and lovasz_lookup are held in checks only)
@@ -397,9 +414,50 @@ def lovasz_want(n: int) -> dict:
     return {k: n for k in PATH_LOVASZ}
 
 
+# the cascaded x2 upsample pair (ops/upsample.py) runs in every model's
+# forward and backward on the card, once per up_pow2 or x2 upsample outside
+# the spatial mode: the launch checks name its two counters like the
+# others', from its launches a pass
+UPSAMPLE = ("upsample_pow2", "upsample_pow2_grad")
+# its launches per forward (and per backward): the flagship UNet's head and,
+# in each of its four subpixel decoder blocks, the x2 of the top rows, the
+# bottom rows and the edge columns; the materialized decoder's four up
+# blocks and the head; the kernel route's head (its decoder is the fused
+# kernel); DeepLab's ASPP x8 and logits x4; FPN's three top-down heads and
+# logits x4; the plain UNet's and light UNet's three up blocks
+UPSAMPLE_PER_PASS = {"unet_subpixel": 13, "unet_materialized": 5, "unet_kernel_route": 1,
+                     "mobilenetv2_deeplab": 2, "mobilenetv2_fpn": 4, "unet": 3,
+                     "light_unet": 3}
+SUBPIXEL = UPSAMPLE_PER_PASS["unet_subpixel"]
+
+
+def upsample_counts() -> dict:
+    return {k: kernels.launches[k] for k in UPSAMPLE}
+
+
+def upsample_want(forward: int, backward: int = 0) -> dict:
+    return {"upsample_pow2": forward, "upsample_pow2_grad": backward}
+
+
+def train_upsample_want(tr, per_pass: int, steps: int) -> dict:
+    """The pair's launches in ``tr``'s run: ``per_pass`` each way a step,
+    and forward on each batch of every evaluation of the val split."""
+    evals = sum("val_loss" in r for r in tr.history)
+    passes = evals * -(-tr.combined.val_size // tr.cfg.train.batch_size)
+    return upsample_want(per_pass * (steps + passes), per_pass * steps)
+
+
 def path_want(**counts) -> dict:
     """Every kernel's expected launches: 0 but for ``counts``."""
     return {**{k: 0 for k in kernels.launches}, **counts}
+
+
+def but_upsample(counts: dict) -> dict:
+    """``counts`` without the pair's: for the spatial mode's ranks, where
+    the pair takes only the slab edges that a rank's rows reach."""
+    return {k: v for k, v in counts.items() if k not in UPSAMPLE}
+
+
 # the Lovász planes of one training batch: [C, B*H*W] = [10, 262,144]
 LOVASZ_SHAPE = (CLASSES, BATCH * MODEL_HW[0] * MODEL_HW[1])
 # error-sum histogram: f32 sums of up to 2.6e5 errors per bin, taken in
@@ -551,7 +609,7 @@ def upconcat_f64(skip, x, w, b) -> torch.Tensor:
     """conv3x3(cat([skip, up2x(x)])) + b in float64 throughout, NHWC: the
     reference that the kernel's and the plain version's fp32 errors are
     measured against (``fused_upconcat_plain`` itself computes in fp32)."""
-    up = upsample2x_bilinear(x.double(), align_corners=False)
+    up = resize_bilinear(x.double(), 2 * x.shape[1], 2 * x.shape[2])   # plain: f64 on the card
     cat = torch.cat([skip.double(), up], dim=-1).permute(0, 3, 1, 2)
     y = F.conv2d(cat, w.double().permute(3, 2, 0, 1), padding=1)
     return y.permute(0, 2, 3, 1) + b.double()
@@ -1081,6 +1139,179 @@ def mbconv_row():
         per_call=per_block, note="ms are sums over the 17 encoder blocks of one forward")
 
 
+# the cascaded x2 upsample at the cells' shapes: (shape, times,
+# align_corners, dtype) of DeepLab's logits x4 and ASPP x8 (deeplab-train-c66:
+# batch 32, 512x256), the UNet head in training (unet-train-b64: batch 64,
+# 256x128) and served (unet-serve-720p-b16: batch 16, model 512x1024)
+UPSAMPLE_SHAPES = {
+    "deeplab_logits_x4": ((32, 64, 128, 66), 2, False, torch.float32),
+    "deeplab_aspp_x8": ((32, 8, 16, 256), 3, False, torch.bfloat16),
+    "unet_head_train": ((64, 64, 128, 10), 1, True, torch.float32),
+    "unet_head_serve": ((16, 256, 512, 10), 1, True, torch.float32),
+}
+UPSAMPLE_TRAIN_STEPS = 8
+UPSAMPLE_TRAIN_FLAGS = {
+    "mobilenetv2_deeplab": ["--model.name=mobilenetv2_deeplab", "--model.num_classes=66",
+                "--model.compute_dtype=bfloat16", "--train.loss=ce+lovasz"],
+    "unet_subpixel": ["--model.compute_dtype=bfloat16", "--train.loss=ce+lovasz"],
+}
+# served routes: (flags, launches a pass)
+UPSAMPLE_SERVE_ROUTES = {
+    "kernel_route": (["--model.use_pallas=true", "--model.up_subpixel=false"],
+                     UPSAMPLE_PER_PASS["unet_kernel_route"]),
+    "materialized": (["--model.use_pallas=false", "--model.up_subpixel=false"],
+                     UPSAMPLE_PER_PASS["unet_materialized"]),
+    "subpixel": (["--model.compute_dtype=bfloat16"], SUBPIXEL),
+}
+# the backward kernel against autograd of the plain version: the card's
+# index_add adds a sum's 1-4 terms in atomic order, so each fp32 sum is
+# within a rounding or two of the gather's (rtol, and atol in units of the
+# largest gradient); in bf16 a step boundary's rounding may then land one
+# bf16 step away. Where the output has at most UPSAMPLE_CPU_NUMEL elements
+# the gather equals CPU autograd (index_add in index order) bit for bit.
+UPSAMPLE_GRAD_TOL = {torch.float32: (1e-5, 1e-6),
+                     torch.bfloat16: (2 * torch.finfo(torch.bfloat16).eps,) * 2}
+UPSAMPLE_CPU_NUMEL = 1 << 26
+
+
+def upsample_library(x, times: int, ac: bool):
+    """The library's yardstick: F.interpolate(scale_factor=2, bilinear) per
+    x2 step, on the NCHW (channels_last) view of the NHWC tensor."""
+    y = x.permute(0, 3, 1, 2)
+    for _ in range(times):
+        y = F.interpolate(y, scale_factor=2, mode="bilinear", align_corners=ac)
+    return y
+
+
+def upsample_plain(x, times: int, ac: bool):
+    """The plain version on either device: ``times`` x2 ``resize_bilinear``
+    steps (ops/resize.py's own path, which the card's dispatch skips)."""
+    for _ in range(times):
+        x = resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], ac)
+    return x
+
+
+def upsample_grad(fn, times: int, ac: bool):
+    """(x, g) -> d<g, fn(x)>/dx by autograd (fn's forward and backward)."""
+    def run(x, g):
+        x = x.detach().requires_grad_(True)
+        y = fn(x, times, ac)
+        return torch.autograd.grad(y, x, g if y.shape == g.shape else g.permute(0, 3, 1, 2))[0]
+    return run
+
+
+def upsample_rows(name, shape, times: int, ac: bool, dtype, seed: int) -> dict:
+    """The pair at one shape: checked, then timed beside its bound, the
+    plain version and the library."""
+    from tpuseg_torch.ops import upsample as up
+
+    out_shape = (shape[0], shape[1] << times, shape[2] << times, shape[3])
+    x, g = randn(shape, seed).to(dtype), randn(out_shape, seed + 1).to(dtype)
+    before = upsample_counts()
+    got = up.upsample_pow2(x, times, ac)
+    grad = upsample_grad(up.upsample_pow2, times, ac)
+    dx, again = grad(x, g), grad(x, g)
+    torch.cuda.synchronize()
+    calls = {k: v - before[k] for k, v in upsample_counts().items()}
+    fwd_err = float((got.float() - upsample_plain(x, times, ac).float()).abs().max())
+    del got
+    dx_plain = upsample_grad(upsample_plain, times, ac)(x, g)
+    err = float((dx.float() - dx_plain.float()).abs().max())
+    scale = float(dx_plain.float().abs().max())
+    rtol, atol = UPSAMPLE_GRAD_TOL[dtype]
+    within = bool(((dx.float() - dx_plain.float()).abs()
+                   <= atol * scale + rtol * dx_plain.float().abs()).all())
+    del dx_plain
+    cpu_equal = None
+    if math.prod(out_shape) <= UPSAMPLE_CPU_NUMEL:
+        cpu_equal = torch.equal(dx.cpu(), upsample_grad(upsample_plain, times, ac)(x.cpu(),
+                                                                                   g.cpu()))
+    repeats = torch.equal(dx, again)
+    if fwd_err != 0.0 or not repeats or not within or cpu_equal is False \
+            or calls != upsample_want(3, 2):
+        raise AssertionError(f"upsample {name}: forward off by {fwd_err}, backward repeats "
+                             f"{repeats}, off by {err} of {scale} (rtol {rtol}, atol {atol} "
+                             f"of it), bit-equal to CPU autograd {cpu_equal}, launches {calls}")
+    del dx, again, x, g
+    item = torch.finfo(dtype).bits // 8
+    n_bytes = (math.prod(shape) + math.prod(out_shape)) * item
+    ins = copies(lambda i: (randn(shape, seed + 10 + i).to(dtype),), n_bytes)
+    gins = copies(lambda i: (randn(shape, seed + 10 + i).to(dtype),
+                             randn(out_shape, seed + 50 + i).to(dtype)), n_bytes)
+    row = dict(
+        shape=list(shape), times=times, align_corners=ac, dtype=str(dtype)[6:],
+        max_abs_err=fwd_err, backward_repeats_bit_equal=True,
+        grad_max_abs_err=err, grad_scale=scale, grad_rtol=rtol, grad_atol_of_scale=atol,
+        grad_bit_equal_to_cpu_autograd=cpu_equal,
+        ms=device_ms(lambda a: up.upsample_pow2(a, times, ac), ins),
+        grad_ms=device_ms(lambda a, b: up._backward(b, a.shape, times, ac), gins),
+        pair_ms=device_ms(grad, gins),
+        plain_ms=device_ms(lambda a: upsample_plain(a, times, ac), ins),
+        plain_pair_ms=device_ms(upsample_grad(upsample_plain, times, ac), gins),
+        library_ms=device_ms(lambda a: upsample_library(a, times, ac), ins),
+        library_pair_ms=device_ms(upsample_grad(upsample_library, times, ac), gins),
+        library="F.interpolate(scale_factor=2, bilinear) per x2 step, channels_last")
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 0)
+    del ins, gins
+    torch.cuda.empty_cache()
+    return row
+
+
+def upsample_train_run(label: str, steps: int) -> dict:
+    """``steps`` captured steps of ``tpuseg_torch.main`` at label's flags:
+    UPSAMPLE_PER_PASS[label] launches each way a step, the fused Lovász
+    pair once, nothing else."""
+    from tpuseg_torch.main import main as train_main
+
+    kernels.reset_launches()
+    tr = train_main(UPSAMPLE_TRAIN_FLAGS[label] + [
+        "--train.epochs=1", f"--train.steps_per_epoch={steps}", "--data.val_split=0",
+        "--train.checkpoint_dir=", "--train.log_every=0"])
+    torch.cuda.synchronize()
+    per = UPSAMPLE_PER_PASS[label]
+    counts = dict(kernels.launches)
+    if counts != path_want(**lovasz_want(steps), **upsample_want(per * steps, per * steps)) \
+            or tr.step != steps or tr.train_step.replays() != steps - 1 \
+            or not all(map(math.isfinite, tr.step_losses)):
+        raise AssertionError(f"upsample: {label} launches {counts} after {tr.step} steps "
+                             f"({tr.train_step.replays()} replays), want {per} each way a step")
+    out = {"steps": steps, "replays": tr.train_step.replays(), "launches": upsample_counts(),
+           "per_step": per, "losses": tr.step_losses}
+    del tr
+    return out
+
+
+def phase_upsample(pth: Path, frames) -> dict:
+    """The cascaded x2 upsample pair: rows at UPSAMPLE_SHAPES, then its
+    launches on the train steps and served passes that run it."""
+    t0 = time.perf_counter()
+    out = {"phase": "upsample", "rows": {
+        name: upsample_rows(name, *case, 700 + 100 * i)
+        for i, (name, case) in enumerate(UPSAMPLE_SHAPES.items())}}
+    out["train"] = {label: upsample_train_run(label, UPSAMPLE_TRAIN_STEPS)
+                    for label in UPSAMPLE_TRAIN_FLAGS}
+    out["serve"] = {}
+    for label, (flags, per) in UPSAMPLE_SERVE_ROUTES.items():
+        pred = Predictor(load_config(flags).model, checkpoint=str(pth), input_hw=MODEL_HW,
+                         batch_size=BATCH)
+        kernels.reset_launches()
+        for f in frames:
+            pred(f)
+        torch.cuda.synchronize()
+        if upsample_counts() != upsample_want(per * len(frames)):
+            raise AssertionError(f"upsample: served {label} launches {upsample_counts()} over "
+                                 f"{len(frames)} passes, want {per} a pass")
+        out["serve"][label] = {"passes": len(frames), "per_pass": per,
+                               "launches": upsample_counts()}
+        del pred
+    out["launches"] = {k: sum(r["launches"][k] for r in (*out["train"].values(),
+                                                         *out["serve"].values()))
+                       for k in UPSAMPLE}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def seeded_weights(cfg, path: Path) -> None:
     """Seeded full-width weights with non-trivial BatchNorm statistics."""
     model = build_model(cfg.model)
@@ -1168,7 +1399,8 @@ def phase_serve(pth: Path, name: str):
     outs = [pred(f) for f in frames]
     counts = dict(kernels.launches)
     want = path_want(fused_upsample_concat_conv=4 * SERVE_BATCHES,
-                     argmax_colorize=SERVE_BATCHES)
+                     argmax_colorize=SERVE_BATCHES,
+                     **upsample_want(UPSAMPLE_PER_PASS["unet_kernel_route"] * SERVE_BATCHES))
     if counts != want:
         raise AssertionError(f"serve launches {counts}, expected {want}")
 
@@ -1269,8 +1501,8 @@ def phase_families(tmp: Path, frames):
         kernels.reset_launches()
         outs = [pred(f) for f in frames]
         counts = dict(kernels.launches)
-        want = {k: 0 for k in counts}
-        want["argmax_colorize"] = len(frames)
+        want = path_want(argmax_colorize=len(frames),
+                         **upsample_want(UPSAMPLE_PER_PASS[name] * len(frames)))
         if counts != want:
             raise AssertionError(f"{name} launches {counts}, expected {want}")
         agree, distinct = check_served(outs, frames, ref, name)
@@ -1305,8 +1537,8 @@ def phase_stem_s2d(pth: Path, frames):
     kernels.reset_launches()
     outs = [s2d(f) for f in frames]
     counts = dict(kernels.launches)
-    want = {k: 0 for k in counts}
-    want.update(fused_upsample_concat_conv=4 * len(frames), argmax_colorize=len(frames))
+    want = path_want(fused_upsample_concat_conv=4 * len(frames), argmax_colorize=len(frames),
+                     **upsample_want(UPSAMPLE_PER_PASS["unet_kernel_route"] * len(frames)))
     if counts != want:
         raise AssertionError(f"stem_s2d launches {counts}, expected {want}")
     agree, _ = check_served(outs, frames, lambda f: plain(f)[0], "stem_s2d")
@@ -1499,8 +1731,8 @@ def phase_video(pth: Path) -> dict:
             torch.cuda.synchronize()
             counts = dict(kernels.launches)
             n_fwd = VIDEO_FRAMES // BATCH + 1           # + the warm-up batch
-            want = {k: 0 for k in counts}
-            want.update(argmax_colorize=n_fwd, fused_upsample_concat_conv=4 * n_fwd)
+            want = path_want(argmax_colorize=n_fwd, fused_upsample_concat_conv=4 * n_fwd,
+                             **upsample_want(UPSAMPLE_PER_PASS["unet_kernel_route"] * n_fwd))
             if counts != want:
                 raise AssertionError(f"video launches {counts}, expected {want}")
             if stats["frames"] != VIDEO_FRAMES or len(seen) != VIDEO_FRAMES:
@@ -1647,7 +1879,8 @@ def phase_train(perf) -> dict:
         counts = dict(kernels.launches)
 
         cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
-        want = path_want(**lovasz_want(TRAIN_STEPS))
+        want = path_want(**lovasz_want(TRAIN_STEPS),
+                         **train_upsample_want(tr, SUBPIXEL, TRAIN_STEPS))
         if counts != want or tr.step != TRAIN_STEPS:
             raise AssertionError(f"train launches {counts} after {tr.step} steps, want {want}")
         slice_cfg = dict(name="mobilenetv2_unet", width_mult=1.0, num_classes=10,
@@ -1828,7 +2061,7 @@ def many_classes_run(flags, steps: int) -> tuple:
                              "--train.log_every=0"])
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    want = path_want(**lovasz_want(steps))
+    want = path_want(**lovasz_want(steps), **train_upsample_want(tr, SUBPIXEL, steps))
     if counts != want or tr.step != steps or tr.cfg.model.num_classes != MANY_CLASSES \
             or tr.train_step.replays() != steps - 1 \
             or not all(map(math.isfinite, tr.step_losses)):
@@ -1980,7 +2213,8 @@ def phase_train_packed(synthetic: dict, packed: str) -> dict:
     out["wall_s"] = time.perf_counter() - t0
     counts = dict(kernels.launches)
     cfg, losses, rec = tr.cfg, tr.step_losses, tr.history[-1]
-    want = path_want(**lovasz_want(TRAIN_STEPS))
+    want = path_want(**lovasz_want(TRAIN_STEPS),
+                     **train_upsample_want(tr, SUBPIXEL, TRAIN_STEPS))
     if counts != want or tr.step != TRAIN_STEPS:
         raise AssertionError(f"train_packed launches {counts} after {tr.step} steps, "
                              f"want {want}")
@@ -2116,17 +2350,17 @@ def contact_import(tmp: Path) -> tuple:
     return str(out), row
 
 
-def contact_run(argv, steps: int, what: str):
+def contact_run(argv, steps: int, what: str, ups: dict):
     """``tpuseg_torch.main`` on ``argv``: the Trainer, its launches (both
-    fused Lovász kernels once a step, nothing else) and the first and last 5
-    losses (the loss must fall)."""
+    fused Lovász kernels once a step, the upsample pair's ``ups``, nothing
+    else) and the first and last 5 losses (the loss must fall)."""
     from tpuseg_torch.main import main as train_main
 
     kernels.reset_launches()
     tr = train_main(argv)
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    want = path_want(**lovasz_want(steps))
+    want = path_want(**lovasz_want(steps), **ups)
     losses = tr.step_losses
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if counts != want or tr.step != steps or not all(math.isfinite(v) for v in losses) \
@@ -2174,12 +2408,12 @@ def in_turns(configs: dict) -> dict:
     return rows
 
 
-def deterministic_ab(flags, label: str) -> dict:
+def deterministic_ab(flags, label: str, ups) -> dict:
     """``train_ab`` (3 captured steps against 3 eager) under deterministic algorithms."""
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
     try:
-        return train_ab(flags, label, lovasz=True)
+        return train_ab(flags, label, lovasz=True, ups=ups)
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
@@ -2303,7 +2537,11 @@ def contact_ranks(flags, n_convs: int) -> dict:
                * INV_LEVELS).item()
         equal += int(s0 == s1 == one and m0 and m1)
         local_differ += int(l0 != l1)
-    want = lovasz_want(CONTACT_MESH_STEPS)
+    # each rank: the QAT student (the materialized decoder) each way, the
+    # teacher (the subpixel decoder) forward, on its rows of every batch
+    per = UPSAMPLE_PER_PASS["unet_materialized"] * CONTACT_MESH_STEPS
+    want = {**lovasz_want(CONTACT_MESH_STEPS),
+            **upsample_want(per + SUBPIXEL * CONTACT_MESH_STEPS, per)}
     row = {"route": mesh_route(MESH_RANKS)[0], "wall_s": wall,
            "scales_recorded": [len(r["scales"]) for r in ranks],
            "scales_equal_one_process": equal, "convs_whose_rank_absmax_differ": local_differ,
@@ -2336,8 +2574,10 @@ def phase_train_contact(packed: str) -> dict:
 
         # (2) QAT from the imported encoder
         qat = [src, f"--train.init_checkpoint={pre}", "--train.qat=true", "--train.loss=lovasz"]
+        # QAT trains the materialized decoder
+        per = UPSAMPLE_PER_PASS["unet_materialized"] * CONTACT_STEPS
         tr, row = contact_run(qat + CONTACT_RUN + [f"--train.checkpoint_dir={ck}"],
-                              CONTACT_STEPS, "qat")
+                              CONTACT_STEPS, "qat", upsample_want(per, per))
         n_convs = len(qat_convs(tr.model))
         plain = {k: v.shape for k, v in build_model(tr.cfg.model).state_dict().items()}
         row.update(qat_convs=n_convs, state_dict_as_without_qat=plain == {
@@ -2348,7 +2588,8 @@ def phase_train_contact(packed: str) -> dict:
         if not row["state_dict_as_without_qat"] or row["checkpoint"] != [
                 f"step_{CONTACT_STEPS}.pt"] or n_convs != 61:
             raise AssertionError(f"train_contact: qat {row}")
-        row["captured_vs_eager"] = deterministic_ab(qat, "qat")
+        row["captured_vs_eager"] = deterministic_ab(
+            qat, "qat", (UPSAMPLE_PER_PASS["unet_materialized"],) * 2)
         # QAT trains the materialized decoder: the plain step both with the
         # default subpixel decoder and with the materialized one
         plain_flags = [f for f in qat if f != "--train.qat=true"]
@@ -2360,8 +2601,11 @@ def phase_train_contact(packed: str) -> dict:
         # (3) a fast student distilled from the QAT run
         student = [src, "--model.name=mobilenetv2_fpn", "--train.loss=lovasz"]
         kd = student + [f"--train.distill_checkpoint={ck}", *KD_FLAGS]
+        # the student FPN each way, the frozen teacher (the flagship with the
+        # subpixel decoder) forward
+        per = UPSAMPLE_PER_PASS["mobilenetv2_fpn"] * CONTACT_STEPS
         tr, row = contact_run(kd + CONTACT_RUN + ["--train.checkpoint_dir="], CONTACT_STEPS,
-                              "distill")
+                              "distill", upsample_want(per + SUBPIXEL * CONTACT_STEPS, per))
         if tr.teacher is None or tr.teacher.training or type(tr.teacher).__name__ != \
                 "MobileNetV2UNet":
             raise AssertionError("train_contact: the distilled run has no frozen teacher")
@@ -2377,7 +2621,9 @@ def phase_train_contact(packed: str) -> dict:
                      BATCH * h * w * 3 * 4)
         row["teacher_forward_ms"] = device_ms(tr.teacher_fn, ins)
         del tr, ins
-        row["captured_vs_eager"] = deterministic_ab(kd, "distill")
+        row["captured_vs_eager"] = deterministic_ab(
+            kd, "distill", (UPSAMPLE_PER_PASS["mobilenetv2_fpn"] + SUBPIXEL,
+                            UPSAMPLE_PER_PASS["mobilenetv2_fpn"]))
         row["timing"] = in_turns({"student": student, "distilled": kd})
         step_ms = float(np.median([r["device_step_ms"] for r in row["timing"]["distilled"]]))
         row["teacher_share_of_device_step"] = row["teacher_forward_ms"] / step_ms
@@ -2647,8 +2893,8 @@ def bf16_serve(pth: Path, frames) -> tuple:
                                  f"{agree} with the bf16 plain path")
         out["served"][r] = {"captured_bit_equal_to_eager": True, "replays": replays,
                             "agreement_min_vs_bf16_plain": min(agree)}
-    want = {k: 0 for k in counts}
-    want.update(fused_upsample_concat_conv=4 * len(frames), argmax_colorize=len(frames))
+    want = path_want(fused_upsample_concat_conv=4 * len(frames), argmax_colorize=len(frames),
+                     **upsample_want(UPSAMPLE_PER_PASS["unet_kernel_route"] * len(frames)))
     if counts != want:
         raise AssertionError(f"bf16 serve launches {counts}, expected {want}")
     out["launches"] = counts
@@ -2684,7 +2930,8 @@ def bf16_train(train: dict) -> tuple:
     tr = train_main(argv)
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    want = path_want(**lovasz_want(BF16_TRAIN_STEPS))
+    want = path_want(**lovasz_want(BF16_TRAIN_STEPS),
+                     **train_upsample_want(tr, SUBPIXEL, BF16_TRAIN_STEPS))
     if counts != want or tr.step != BF16_TRAIN_STEPS:
         raise AssertionError(f"bf16 train launches {counts} after {tr.step} steps")
     losses = tr.step_losses
@@ -2892,6 +3139,9 @@ def mesh_rank(device, logits_np, targets_np, flags, n_ranks) -> dict:
     tr = train_main(flags)
     torch.cuda.synchronize()
     out["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    # the flagship on this rank's rows of each batch, the val split's
+    # included
+    out["upsample_want"] = train_upsample_want(tr, SUBPIXEL, tr.step)
     digest = hashlib.sha256()
     for k, v in tr.model.state_dict().items():
         digest.update(v.cpu().numpy().tobytes())
@@ -3010,7 +3260,7 @@ def phase_mesh(n_ranks: int = MESH_RANKS) -> dict:
             raise AssertionError(f"mesh: the sharded Lovász on rank {r['rank']}: {row}")
         losses = r["losses"]
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        want = lovasz_want(MESH_STEPS)
+        want = {**lovasz_want(MESH_STEPS), **r["upsample_want"]}
         if (r["launches"] != want or r["steps"] != MESH_STEPS or r["captured"]
                 or r["backend"] != backend or not all(math.isfinite(x) for x in losses)
                 or not last < first or not math.isfinite(r["val_miou"] or float("nan"))):
@@ -3114,7 +3364,8 @@ def spatial_ab_run(flags, keep: bool, steps: int) -> dict:
                                  for k, p in tr.model.named_parameters() if p.grad is not None}
     torch.cuda.synchronize()
     hook.remove()
-    out["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    out["launches"] = but_upsample({k: v for k, v in kernels.launches.items() if v})
+    out["upsample_launches"] = upsample_counts()
     out["logits1"] = seen[0]
     digest = hashlib.sha256()
     for k, v in tr.model.state_dict().items():
@@ -3181,7 +3432,8 @@ def spatial_rank(device, flags, logits_np, targets_np) -> dict:
     kernels.reset_launches()
     tr = train_main(flags)
     torch.cuda.synchronize()
-    out["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    out["launches"] = but_upsample({k: v for k, v in kernels.launches.items() if v})
+    out["upsample_launches"] = upsample_counts()
     out.update(losses=tr.step_losses, steps=tr.step, spatial=tr.spatial, mesh=str(tr.mesh),
                val_miou=tr.history[-1].get("val_miou"),
                captured=hasattr(tr.train_step, "replays"))
@@ -3309,6 +3561,7 @@ def phase_spatial(packed: str) -> dict:
         want = lovasz_want(SPATIAL_STEPS)
         ratio = r["ab"]["activation_peak_mb"] / one_peak
         row = {"rank": r["rank"], "slab_rows": r["slab"], "launches": r["launches"],
+               "upsample_launches": r["upsample_launches"],
                "loss_first5": first, "loss_last5": last, "val_miou": r["val_miou"],
                "p50_step_ms": r["p50_step_ms"], "lovasz_region_ms": r["region_ms"],
                "fetches_per_step": r["fetches_per_step"],
@@ -3340,6 +3593,7 @@ def phase_spatial(packed: str) -> dict:
     ratios = [r["activation_peak_mb"] / one_peak for r in four]
     out["combined"] = {"route": route4, "ranks": 4, "wall_s": time.perf_counter() - t0,
                        "launches_per_rank": [r["launches"] for r in four],
+                       "upsample_launches_per_rank": [r["upsample_launches"] for r in four],
                        "activation_peak_mb": [r["activation_peak_mb"] for r in four],
                        "activation_ratio": ratios,
                        "vs_one_process": spatial_vs_one(four, one, slabs,
@@ -3424,19 +3678,21 @@ def snapshot_diff(a: dict, b: dict) -> dict:
                                  for k in differ] + [0.0])}
 
 
-def train_ab(flags, label: str, lovasz: bool) -> dict:
+def train_ab(flags, label: str, lovasz: bool, ups=(SUBPIXEL, SUBPIXEL)) -> dict:
     """Captured against eager, GRAPH_AB_STEPS steps from one seeded state,
     deterministic algorithms: the state and the losses bit-equal (the fused
     Lovász kernels sum integers and fixed-point offsets, so their value
     repeats bit for bit); with ``lovasz``, each fused kernel launches once a
-    step."""
+    step; the upsample pair ``ups`` (forward, backward) a step."""
     cap_l, cap_s, replays, cap_n = train_run(flags, GRAPH_AB_STEPS, eager=False)
     eag_l, eag_s, _, eag_n = train_run(flags, GRAPH_AB_STEPS, eager=True)
     row = {"flags": flags, "steps": GRAPH_AB_STEPS, "replays": replays,
            "launches_captured": cap_n, "launches_eager": eag_n,
            "captured_losses": cap_l, "eager_losses": eag_l,
            "state": snapshot_diff(cap_s, eag_s)}
-    want_n = lovasz_want(GRAPH_AB_STEPS) if lovasz else {}
+    want_n = {k: v for k, v in {**(lovasz_want(GRAPH_AB_STEPS) if lovasz else {}),
+                                **upsample_want(ups[0] * GRAPH_AB_STEPS,
+                                                ups[1] * GRAPH_AB_STEPS)}.items() if v}
     if cap_n != want_n or eag_n != want_n:
         raise AssertionError(f"graphs: {label} launches {cap_n} captured, {eag_n} eager, "
                              f"want {want_n}")
@@ -3492,7 +3748,9 @@ def eval_ab() -> dict:
 DEVICE_KERNELS = {"argmax_colorize": "argmax_colorize_kernel",
                   "fused_upsample_concat_conv": "upconcat_mma_kernel",
                   "lovasz_logits_histograms": "logits_hist_partial",
-                  "lovasz_logits_grad": "logits_grad_kernel"}
+                  "lovasz_logits_grad": "logits_grad_kernel",
+                  "upsample_pow2": "upsample_pow2_kernel",
+                  "upsample_pow2_grad": "upsample_pow2_grad_kernel"}
 
 
 def device_time(e) -> float:
@@ -3540,9 +3798,12 @@ def train_profile() -> dict:
     total_ms = sum(device_time(e) for e in rows) / 1e3
     if not traces or total_ms <= 0:
         raise AssertionError(f"profile_dir wrote {traces}, device time {total_ms} ms")
-    seen = check_counted(counts, events, PATH_LOVASZ, f"{PROFILE_STEPS}-step profile_dir run")
-    if set(seen.values()) != {PROFILE_STEPS}:
-        raise AssertionError(f"graphs: {PROFILE_STEPS} profiled steps ran {seen}")
+    seen = check_counted(counts, events, PATH_LOVASZ + UPSAMPLE,
+                         f"{PROFILE_STEPS}-step profile_dir run")
+    want = {**lovasz_want(PROFILE_STEPS),
+            **upsample_want(SUBPIXEL * PROFILE_STEPS, SUBPIXEL * PROFILE_STEPS)}
+    if seen != want:
+        raise AssertionError(f"graphs: {PROFILE_STEPS} profiled steps ran {seen}, want {want}")
     return {"steps": tr.step, "traces": traces, "device_ms_total": total_ms,
             "device_ms_per_step": total_ms / tr.step,
             "device_kernel_counts": seen,
@@ -3606,12 +3867,14 @@ def serve_graphs(pth: Path, frames) -> dict:
             raise AssertionError(f"graphs: route {label} replayed {replays} times")
         if label.startswith("kernels") and (
                 counts["argmax_colorize"] != len(frames)
-                or counts["fused_upsample_concat_conv"] != 4 * len(frames)):
+                or counts["fused_upsample_concat_conv"] != 4 * len(frames)
+                or counts["upsample_pow2"] != UPSAMPLE_PER_PASS["unet_kernel_route"] * len(frames)):
             raise AssertionError(f"graphs: {label} launches {counts} over {len(frames)} calls")
         row = {"bit_equal": True, "replays": replays, "launches": counts}
         if label.startswith("kernels"):
             row["device_kernel_counts"] = check_counted(
-                counts, prof.key_averages(), ("argmax_colorize", "fused_upsample_concat_conv"),
+                counts, prof.key_averages(),
+                ("argmax_colorize", "fused_upsample_concat_conv", "upsample_pow2"),
                 f"route {label}")
         out["routes"][label] = row
     args = serve.parse_args(["--port", "0", "--checkpoint", str(pth), "--max_batch", "8"])
@@ -3692,8 +3955,11 @@ def phase_graphs(pth: Path, frames) -> None:
             warnings.simplefilter("always")
             out["train_lovasz"] = train_ab(["--train.loss=lovasz"], "lovasz", lovasz=True)
             out["train_options"] = train_ab(GRAPH_OPTIONS, "options", lovasz=False)
+            # remat runs the forward again in the backward, up to the last
+            # tensor the backward needs: the head's x2 saves none
             out["train_remat"] = train_ab(["--train.loss=lovasz", "--train.remat=true"],
-                                          "remat", lovasz=True)
+                                          "remat", lovasz=True,
+                                          ups=(2 * SUBPIXEL - 1, SUBPIXEL))
             out["eval"] = eval_ab()
             steps = 2 * GRAPH_K
             multi_l, multi_s, multi_r, multi_n = train_run(["--train.loss=lovasz"], steps,
@@ -3868,8 +4134,8 @@ def export_int8(pth: Path, tmp: Path, frames) -> dict:
     got = [int8(f) for f in frames]
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    want_counts = {k: 0 for k in counts}
-    want_counts["argmax_colorize"] = len(frames)
+    want_counts = path_want(argmax_colorize=len(frames),
+                            **upsample_want(UPSAMPLE_PER_PASS["unet_materialized"] * len(frames)))
     if counts != want_counts:
         raise AssertionError(f"export: int8 serving launches {counts}, expected {want_counts}")
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -3959,7 +4225,7 @@ def export_artifact(pth: Path, tmp: Path, frames) -> dict:
     kernels.reset_launches()
     got = [art(f) for f in frames]
     torch.cuda.synchronize()
-    counts = dict(kernels.launches)
+    counts = dict(kernels.launches)    # the artifact's graph holds the plain upsample
     if counts["argmax_colorize"] != len(frames) or sum(counts.values()) != len(frames):
         raise AssertionError(f"export: artifact serving launches {counts}")
     agree, distinct = check_served(got, frames, lambda f: live(f)[0], "artifact")
@@ -4263,6 +4529,7 @@ def main() -> int:
         pth = Path(tmp) / "weights.pth"
         seeded_weights(load_config([]), pth)
         pred, frames, serve_counts = phase_serve(pth, info["name"])
+        upsample = phase_upsample(pth, frames)
         head_counts = phase_head(pred, frames)
         mbconv_counts = phase_mbconv(pred, frames)
         del pred
@@ -4308,7 +4575,20 @@ def main() -> int:
                 "lovasz_logits_grad": train_counts["lovasz_logits_grad"],
                 # no served or training path runs the block kernel, as no JAX
                 # path runs the TPU one: its launches are the mbconv check's
-                "fused_inverted_residual": 0}
+                "fused_inverted_residual": 0,
+                # the upsample pair: the upsample phase's train steps and
+                # served passes, the serving paths' and the training paths'
+                **{k: upsample["launches"][k] + serve_counts[k] + video_counts[k]
+                   + export["launches"][k] + train_counts[k] for k in UPSAMPLE}}
+    ups = upsample["rows"]["deeplab_logits_x4"]
+    perf["upsample_pow2"] = {k: ups[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "max_abs_err")}
+    # the backward runs after a forward: the pair against the plain
+    # version's and the library's forward and backward, and the bytes of both
+    perf["upsample_pow2_grad"] = {"ms": ups["pair_ms"], "plain_ms": ups["plain_pair_ms"],
+                                  "library_ms": ups["library_pair_ms"],
+                                  "bound_ms": 2 * ups["bound_ms"], "bound_by": ups["bound_by"],
+                                  "max_abs_err": ups["grad_max_abs_err"]}
     dec = perf["fused_upsample_concat_conv"]
     blk = perf["fused_inverted_residual"]
     region = {
@@ -4333,6 +4613,13 @@ def main() -> int:
         "lovasz_logits_grad": {"make_sharded_lovasz": region,
                                "loss_region": perf["lovasz_logits_grad"]["loss_region"],
                                f"loss_region_{MANY_CLASSES}": many["loss_region"]}}
+    extra["upsample_pow2"] = {"shape": ups["shape"], "times": ups["times"],
+                              "rows": upsample["rows"],
+                              "train": {k: r["per_step"] for k, r in upsample["train"].items()},
+                              "serve": {k: r["per_pass"] for k, r in upsample["serve"].items()}}
+    extra["upsample_pow2_grad"] = {
+        "timed": "the pair's forward and backward: ms, plain_ms, library_ms and bound_ms",
+        "grad_ms": ups["grad_ms"], "grad_scale": ups["grad_scale"]}
     for k, r in bf16["kernels"].items():
         extra.setdefault(k, {}).update(
             {f"bf16_{f}": r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",

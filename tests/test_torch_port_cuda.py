@@ -839,3 +839,159 @@ def test_int8_conv_on_the_card_bit_equal_to_the_plain_version(card, case):
     got = int8_conv(x, kq.cuda(), stride, pad, dil, groups)
     assert got.dtype == torch.int32 and got.is_cuda
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the cascaded x2 upsample pair (ops/upsample.py, csrc/upsample_pow2.cu)
+
+# (shape, times, align_corners, dtype): DeepLab's x4 logits and x8 ASPP, the
+# UNet head at train and serve sizes, a subpixel decoder edge (the last two
+# split their channels into groups, as two ragged ones do); then ragged
+# shapes (odd H and W, one row or column, C of 1, 3 and 66) at every times,
+# both conventions and both dtypes
+POW2_CELLS = [((32, 64, 128, 66), 2, False, torch.float32),
+              ((32, 8, 16, 256), 3, False, torch.bfloat16),
+              ((64, 64, 128, 10), 1, True, torch.float32),
+              ((16, 256, 512, 10), 1, True, torch.float32),
+              ((64, 2, 8, 1280), 1, False, torch.bfloat16),
+              # channel groups on ragged rows and columns
+              ((3, 5, 7, 128), 3, True, torch.float32),
+              ((2, 6, 5, 256), 2, False, torch.bfloat16),
+              # a gradient whose last 16 bytes are part full
+              ((1, 3, 1, 3), 1, False, torch.bfloat16)]
+POW2_RAGGED = [(shape, t, ac, dt) for shape in ((2, 5, 7, 3), (3, 9, 1, 66), (1, 1, 6, 1),
+                                                 (2, 6, 33, 66))
+               for t in (1, 2, 3) for ac in (False, True)
+               for dt in (torch.float32, torch.bfloat16)]
+POW2_CASES = POW2_CELLS + POW2_RAGGED
+# the backward is held bit for bit against autograd of the plain version on
+# the CPU (whose index_add adds in index order, the gather's order) where
+# the output is at most this many elements; larger ones against the card's
+POW2_CPU_NUMEL = 1 << 26
+
+
+def _pow2_plain(x, times, ac):
+    """The plain version on either device: ``times`` x2 ``resize_bilinear``
+    steps (``ops/resize.py``'s own path, which the card's dispatch skips)."""
+    from tpuseg_torch.ops.resize import resize_bilinear
+
+    for _ in range(times):
+        x = resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], ac)
+    return x
+
+
+def _pow2_id(case):
+    shape, t, ac, dt = case
+    return f"{'x'.join(map(str, shape))}-t{t}-{'ac' if ac else 'hp'}-{str(dt)[6:]}"
+
+
+@pytest.mark.parametrize("case", POW2_CASES, ids=[_pow2_id(c) for c in POW2_CASES])
+def test_upsample_pow2_forward_is_the_plain_path_bit_for_bit(card, case):
+    from tpuseg_torch.ops.upsample import upsample_pow2
+
+    shape, times, ac, dtype = case
+    x = _randn(shape, 30).to(dtype)
+    before = dict(kernels.launches)
+    got = upsample_pow2(x, times, ac)
+    assert kernels.launches["upsample_pow2"] == before["upsample_pow2"] + 1
+    assert kernels.launches["upsample_pow2_grad"] == before["upsample_pow2_grad"]
+    want = _pow2_plain(x, times, ac)
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    # the same taps, H then W, each product and sum rounded on its own, and
+    # each step rounded to the input's dtype
+    assert torch.equal(got, want)
+
+
+def _pow2_grads(x, times, ac, g, fn):
+    x = x.detach().requires_grad_(True)
+    (dx,) = torch.autograd.grad(fn(x, times, ac), x, g)
+    return dx
+
+
+@pytest.mark.parametrize("case", POW2_CASES, ids=[_pow2_id(c) for c in POW2_CASES])
+def test_upsample_pow2_backward_is_autograd_of_the_plain_path(card, case):
+    from tpuseg_torch.ops.upsample import upsample_pow2
+
+    shape, times, ac, dtype = case
+    x = _randn(shape, 31).to(dtype)
+    out_shape = (shape[0], shape[1] << times, shape[2] << times, shape[3])
+    g = _randn(out_shape, 32).to(dtype)
+    before = dict(kernels.launches)
+    got = _pow2_grads(x, times, ac, g, upsample_pow2)
+    again = _pow2_grads(x, times, ac, g, upsample_pow2)
+    assert kernels.launches["upsample_pow2_grad"] == before["upsample_pow2_grad"] + 2
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, again)          # no atomics: every run the same bits
+    if g.numel() <= POW2_CPU_NUMEL:
+        assert torch.equal(got.cpu(), _pow2_grads(x.cpu(), times, ac, g.cpu(),
+                                                  _pow2_plain))
+    # the card's index_add adds its 1-4 terms a sum in atomic order: each fp32
+    # sum within a rounding or two of the gather's, and in bf16 a step
+    # boundary's rounding may then land one bf16 step away
+    want = _pow2_grads(x, times, ac, g, _pow2_plain)
+    scale = float(want.float().abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+    else:
+        eps = torch.finfo(torch.bfloat16).eps
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 * eps, atol=2 * eps * scale)
+
+
+def test_upsample_pow2_captured_replays_equal_eager_calls(card):
+    from tpuseg_torch.core import graphs
+    from tpuseg_torch.ops.upsample import upsample_pow2
+
+    def fn(x, g):
+        x = x.detach().requires_grad_(True)
+        y = upsample_pow2(x, 2, False)
+        (dx,) = torch.autograd.grad(y, x, g)
+        return y, dx
+
+    step = graphs.Captured(fn, "upsample_pow2")
+    inputs = [(_randn((4, 16, 32, 66), 40 + i), _randn((4, 64, 128, 66), 50 + i))
+              for i in range(4)]
+    kernels.reset_launches()
+    got = [tuple(t.clone() for t in step(*a)) for a in inputs]
+    assert step.replays() == len(inputs) - 1
+    # a replay adds its graph's launches: one forward, one backward a call
+    assert kernels.launches["upsample_pow2"] == len(inputs)
+    assert kernels.launches["upsample_pow2_grad"] == len(inputs)
+    with graphs.eager():
+        want = [fn(*a) for a in inputs]
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+def test_upsample_pow2_dispatch_on_the_card(card):
+    from tpuseg_torch.ops.resize import up_pow2_bilinear, upsample2x_bilinear
+
+    x = _randn((2, 4, 6, 8), 60)
+    kernels.reset_launches()
+    up_pow2_bilinear(x, 3)
+    upsample2x_bilinear(x, align_corners=True)
+    assert kernels.launches["upsample_pow2"] == 2
+    # the bf16-rounded contraction is another function: its own plain path
+    upsample2x_bilinear(x, align_corners=True, compute_dtype=torch.bfloat16)
+    assert kernels.launches["upsample_pow2"] == 2
+    for bad in (x.half(), x.double()):
+        with pytest.raises(TypeError):
+            upsample2x_bilinear(bad)
+        with pytest.raises(TypeError):
+            up_pow2_bilinear(bad, 2)
+
+
+@pytest.mark.parametrize("family,want", [("mobilenetv2_deeplab", 2), ("mobilenetv2_unet", 13)])
+def test_upsample_pow2_launches_per_train_step(card, family, want):
+    """DeepLab: the ASPP's x8 and the logits' x4, forward and backward; the
+    flagship UNet: the head's x2 and, in each of the four subpixel decoder
+    blocks, the x2 of its top rows, bottom rows and edge columns."""
+    from tpuseg_torch.configs import ModelConfig
+    from tpuseg_torch.models.registry import build_model
+
+    model = build_model(ModelConfig(name=family, compute_dtype="bfloat16")).cuda()
+    model = model.to(memory_format=torch.channels_last).train()
+    x = _randn((2, 3, 64, 128), 61).contiguous(memory_format=torch.channels_last)
+    kernels.reset_launches()
+    model(x).float().square().mean().backward()
+    assert kernels.launches["upsample_pow2"] == want
+    assert kernels.launches["upsample_pow2_grad"] == want

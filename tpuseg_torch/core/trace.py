@@ -32,7 +32,8 @@ call and never synchronizes.
 video pipeline's phase sums), and records each as a span when it does.
 
 Counters: ``launches`` counts the port's CUDA kernel launches per wrapper
-(``ops/kernels.py``, ``ops/lovasz.py``, ``ops/mbconv.py``; a captured
+(``ops/kernels.py``, ``ops/lovasz.py``, ``ops/mbconv.py``,
+``ops/upsample.py``; a captured
 graph adds its kernels' counts at every replay, ``core/graphs.py``) since
 the last ``reset_launches()``. ``ops/kernels.py`` re-exports both.
 """
@@ -83,6 +84,8 @@ launches: Dict[str, int] = {
     "lovasz_logits_histograms": 0,
     "lovasz_logits_grad": 0,
     "fused_inverted_residual": 0,   # tpuseg_torch/ops/mbconv.py
+    "upsample_pow2": 0,             # tpuseg_torch/ops/upsample.py
+    "upsample_pow2_grad": 0,
 }
 
 

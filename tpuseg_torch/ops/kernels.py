@@ -15,6 +15,12 @@ the plain version; a CUDA tensor launches the kernel or raises. There is no
 fallback from the kernel to the plain version, and none of the TPU
 wrappers' shape-based fallbacks: the kernels mask their own ragged edges.
 
+``_SIGNATURES`` also binds the C entry points of the Lovász kernels
+(``ops/lovasz.py``), the block kernel (``ops/mbconv.py``) and the cascaded
+x2 upsample pair (``ops/upsample.py``, which ``ops/resize.py`` dispatches
+to on the card); their wrappers live in those modules. The plain versions
+here upsample with ``resize_bilinear``, so on the card they stay plain.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises if the
 launch reports an error, and adds one to ``launches[<wrapper name>]``.
@@ -62,7 +68,7 @@ import torch.nn.functional as F
 
 # the launch counters: ``core/trace.py``, with the port's spans
 from tpuseg_torch.core.trace import launches, reset_launches  # noqa: F401
-from tpuseg_torch.ops.resize import _bilinear_taps, upsample2x_bilinear
+from tpuseg_torch.ops.resize import _bilinear_taps, resize_bilinear
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C symbol, argument types (pointers and the stream as void*)
@@ -84,12 +90,16 @@ _SIGNATURES = {
                            [_P] * 6 + [_I, _LL, _LL, _LL, _I, _LL, _I, _I, _P]),
     "mbconv": ("tpuseg_mbconv", [_P] * 11 + [_I] * 10 + [_P]),
     "mbconv_plan": ("tpuseg_mbconv_plan", [_I] * 9 + [_P, _P]),
+    "upsample_pow2": ("tpuseg_upsample_pow2", [_P] * 3 + [_I] * 12 + [_P]),
+    "upsample_pow2_grad": ("tpuseg_upsample_pow2_grad", [_P] * 3 + [_I] * 15 + [_P]),
+    "upsample_pow2_limits": ("tpuseg_upsample_pow2_limits", [_P]),
 }
 # symbols that live in another source's library
 _LIBRARY = {"mbconv_plan": "mbconv", "upconcat_plan": "upconcat_conv",
             "lovasz_hist_plan": "lovasz_histograms", "lovasz_logits_plan": "lovasz_logits",
             "lovasz_logits_scratch": "lovasz_logits",
-            "lovasz_logits_histograms": "lovasz_logits", "lovasz_logits_grad": "lovasz_logits"}
+            "lovasz_logits_histograms": "lovasz_logits", "lovasz_logits_grad": "lovasz_logits",
+            "upsample_pow2_grad": "upsample_pow2", "upsample_pow2_limits": "upsample_pow2"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,8 +213,10 @@ def argmax_colorize(logits: torch.Tensor, palette_rgb: np.ndarray):
 
 
 def upsample2x_argmax_plain(logits: torch.Tensor) -> torch.Tensor:
-    """Plain version: argmax(upsample2x_bilinear(logits, ac=True)) as uint8."""
-    up = upsample2x_bilinear(logits.to(torch.float32), align_corners=True)
+    """Plain version: argmax(upsample2x_bilinear(logits, ac=True)) as uint8
+    (``resize_bilinear``'s x2, which a CUDA tensor takes too)."""
+    h, w = logits.shape[-3:-1]
+    up = resize_bilinear(logits.to(torch.float32), 2 * h, 2 * w, align_corners=True)
     return up.argmax(dim=-1).to(torch.uint8)
 
 
@@ -250,7 +262,7 @@ def fused_upconcat_plain(skip: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                          b: torch.Tensor) -> torch.Tensor:
     """Plain version: conv3x3(cat([skip, up2x(x)]), w) + b, NHWC/HWIO, fp32
     (skip and x widened first, as the JAX kernel widens its blocks)."""
-    up = upsample2x_bilinear(x.to(torch.float32), align_corners=False)
+    up = resize_bilinear(x.to(torch.float32), 2 * x.shape[-3], 2 * x.shape[-2])
     cat = torch.cat([skip.to(torch.float32), up], dim=-1)
     y = F.conv2d(cat.permute(0, 3, 1, 2), w.to(torch.float32).permute(3, 2, 0, 1),
                  padding=1)

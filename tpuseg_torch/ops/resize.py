@@ -19,6 +19,15 @@ computed in float64 with numpy and rounded to float32, as in the JAX
 package's ``_bilinear_taps``. No ``F.interpolate``: torch derives its source index
 from the scale factor, which for odd ratios is not the size ratio.
 
+On a CUDA tensor, outside the spatial mode and with no ``compute_dtype``,
+``upsample2x_bilinear`` and ``up_pow2_bilinear`` launch the kernel pair of
+``ops/upsample.py`` (``csrc/upsample_pow2.cu``): the same cascade of x2
+steps, bit for bit, in one kernel forward and one gather kernel backward
+(no ``index_add``). A CPU tensor runs the code here, which the tests hold
+against the JAX package; so do the spatial mode's ``upsample2x_rows``, the
+bf16-rounded contraction (``compute_dtype``) and every resize that is not
+an x2 step.
+
 In the spatial mode (``tpuseg_torch/parallel/spatial.py``) the x2 upsample
 takes a rank's H-slab and returns its owned rows of the output layer: the
 global taps' rows for those rows, applied to the input rows they read
@@ -150,6 +159,10 @@ def upsample2x_bilinear(x: torch.Tensor, align_corners: bool = False,
     frame = spatial.active()
     if frame is None:
         if compute_dtype is None:
+            if x.is_cuda:
+                from tpuseg_torch.ops.upsample import upsample_pow2
+
+                return upsample_pow2(x, 1, align_corners)
             return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], align_corners)
         y = x.to(compute_dtype)
         y = _contract_rounded(y, x.ndim - 3, 2 * x.shape[-3], align_corners, compute_dtype)
@@ -189,7 +202,11 @@ def up_pow2_bilinear(x: torch.Tensor, times: int) -> torch.Tensor:
     """2^times bilinear upsample of [..., H, W, C] as a cascade of exact x2
     ``align_corners=False`` steps: the FPN and DeepLab families' definition
     of an Nx upsample, which differs from one direct Nx resize near the
-    edges."""
+    edges. On a CUDA tensor outside the spatial mode, one kernel launch."""
+    if times and x.is_cuda and spatial.active() is None:
+        from tpuseg_torch.ops.upsample import upsample_pow2
+
+        return upsample_pow2(x, times, align_corners=False)
     for _ in range(times):
         x = upsample2x_bilinear(x, align_corners=False)
     return x
