@@ -12,6 +12,8 @@ from typing import Dict
 
 import torch
 
+from benchmark import harness
+
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
@@ -23,20 +25,22 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 LOVASZ_OPS_PER_ELEMENT = 16
 
 
-def model_flops(arch: Dict, batch: int, height: int, width: int, train: bool) -> int:
+def model_flops(arch: Dict, batch: int, height: int, width: int, train: bool,
+                root: str = harness.CHECKOUT) -> int:
     """FLOPs of the reference model's forward at these shapes, and with
     ``train`` of the step: ``FlopCounterMode`` over the frozen reference on
     the meta device, so the count is the model's whatever implements it. A
     training step counts three forwards (the backward's input and weight
     gradients one each): the counter's own rule for a convolution's
     backward counts a grouped one as if it were dense, 32 to 960 times too
-    much for the depthwise layers."""
+    much for the depthwise layers. A family of its own file is looked up
+    under ``root``, the run's checkout (``reference.models.build``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from benchmark.reference.models import build
 
     with torch.device("meta"):
-        model = build(arch)
+        model = build(arch, root)
         x = torch.empty(batch, 3, height, width)
     model.train(train)
     with FlopCounterMode(display=False) as counter:

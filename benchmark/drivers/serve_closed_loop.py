@@ -69,7 +69,7 @@ def run(ctx) -> Dict:
     predictor = build_predictor(ctx)
     ctx.phase("program built")
     with torch.device("meta"):
-        reference = reference_models.build(arch)
+        reference = reference_models.build(arch, ctx.root)
     reference = reference.to_empty(device=dev)
     reference.load_state_dict(seeded_state(reference, scenes.generator(ctx.seed, 1, dev), dev))
     with plain_float32():

@@ -182,7 +182,7 @@ def _run(ctx, packed, images, masks, arch, shape) -> Dict:
     trainer = build_trainer(ctx, packed)
     ctx.phase("program built")
     with torch.device("meta"):
-        reference = reference_models.build(arch)
+        reference = reference_models.build(arch, ctx.root)
     trainer.model.load_state_dict(seeded_state(reference, scenes.generator(ctx.seed, 1, dev), dev))
     start_model = _clone(trainer.model.state_dict())
     start_opt = _clone(trainer.optimizer.state_dict())

@@ -5,9 +5,11 @@ A cell is found by its name alone: ``BENCHMARK.json`` at the root lists it,
 ``benchmark/workloads/<cell>.json`` holds its traffic and its limits,
 ``benchmark/configs/<config>.json`` its configuration,
 ``benchmark/drivers/<driver>.py`` the loop that drives it and
-``benchmark/metrics/<metric>.py`` each per-layer metric's reader. Each is
-looked up under the root given (a test's temporary tree) and then in this
-package, so a new cell, configuration or metric is a new file.
+``benchmark/metrics/<metric>.py`` each per-layer metric's reader and
+``benchmark/reference/families/<family>.py`` the reference of a model family
+that ``reference/models.py`` does not hold. Each is looked up under the root
+given (a test's temporary tree) and then in this package, so a new cell,
+configuration, metric or family is a new file.
 """
 
 from __future__ import annotations
@@ -29,11 +31,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpuseg")
 def find(root: str, kind: str, name: str, suffix: str) -> str:
     """The path of ``<kind>/<name><suffix>`` under ``root``'s benchmark
     folder, else under this package."""
-    for base in (os.path.join(root, "benchmark"), PACKAGE):
-        path = os.path.join(base, kind, name + suffix)
+    paths = [os.path.join(base, kind, name + suffix)
+             for base in (os.path.join(root, "benchmark"), PACKAGE)]
+    for path in paths:
         if os.path.isfile(path):
             return path
-    raise FileNotFoundError(f"no {kind}/{name}{suffix} under {root} or {PACKAGE}")
+    raise FileNotFoundError(f"no {kind}/{name}{suffix}: neither {paths[0]} nor {paths[1]}")
 
 
 def load_json(path: str) -> Any:

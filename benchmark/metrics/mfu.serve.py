@@ -12,6 +12,7 @@ def read(ctx, out):
     if not calls:
         return None
     h, w = t["model_hw"]
-    flops = counts.model_flops(ctx.config["reference"], t["batch_size"], h, w, train=False)
+    flops = counts.model_flops(ctx.config["reference"], t["batch_size"], h, w, train=False,
+                               root=ctx.root)
     peak = counts.PEAK_FLOPS[ctx.config["compute_dtype"]] * ctx.chips
     return 100.0 * flops * calls / out["window_s"] / peak

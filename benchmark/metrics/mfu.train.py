@@ -12,6 +12,6 @@ def read(ctx, out):
     if not steps:
         return None
     flops = counts.model_flops(ctx.config["reference"], t["batch_size"], t["height"],
-                               t["width"], train=True)
+                               t["width"], train=True, root=ctx.root)
     peak = counts.PEAK_FLOPS[ctx.config["compute_dtype"]] * ctx.chips
     return 100.0 * flops * steps / window / peak

@@ -1,13 +1,16 @@
 """The reference's precision: where it rounds, and to what.
 
 The configurations compute in bfloat16 with float32 parameters, as the
-JAX package's ``ConvBNAct`` rounds: each convolution's input, weight and
-bias in the compute type and its output rounded to it, each BatchNorm's
-output, each activation and each residual sum in it; the loss, the
-parameters and the optimizer in float32. ``rounding(model, kind)`` makes
-the float32 reference round at exactly those places, forward and backward
-(a rounded tensor's gradient is rounded the same way, as autograd through a
-cast gives it):
+JAX package's ``ConvBNAct`` rounds: each convolution's and linear layer's
+input, weight and bias in the compute type and its output rounded to it,
+each BatchNorm's and LayerNorm's output, each activation and each residual
+sum in it; the loss, the parameters and the optimizer in float32.
+``rounding(model, kind)`` makes the float32 reference round at exactly
+those places, forward and backward (a rounded tensor's gradient is rounded
+the same way, as autograd through a cast gives it). The output of every
+module of the types in ``ROUNDED_OUTPUTS`` rounds, and of those that the
+model class names in a ``ROUNDED_OUTPUTS`` of its own (a family's
+attention core, its residual blocks). The kinds:
 
 - ``"bfloat16"``: the configuration's own precision, at which the served
   class maps are held (through some sixty layers, bfloat16 rounding moves
@@ -67,7 +70,16 @@ def _conv(kind):
     return forward
 
 
-ROUNDED_OUTPUTS = (nn.BatchNorm2d, nn.ReLU, nn.ReLU6, InvertedResidual)
+def _linear(kind):
+    def forward(self: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        y = round_to(F.linear(round_to(x, kind), round_to(self.weight, kind)), kind)
+        if self.bias is None:
+            return y
+        return round_to(y + round_to(self.bias, kind), kind)
+    return forward
+
+
+ROUNDED_OUTPUTS = (nn.BatchNorm2d, nn.LayerNorm, nn.ReLU, nn.ReLU6, nn.GELU, InvertedResidual)
 
 
 @contextlib.contextmanager
@@ -77,15 +89,16 @@ def rounding(model: nn.Module, kind: str):
     if kind == "float32":
         yield model
         return
-    convs = [m for m in model.modules() if isinstance(m, nn.Conv2d)]
+    rounded = ROUNDED_OUTPUTS + tuple(getattr(type(model), "ROUNDED_OUTPUTS", ()))
+    layers = [m for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
     hooks = [m.register_forward_hook(lambda mod, args, out: round_to(out, kind))
-             for m in model.modules() if isinstance(m, ROUNDED_OUTPUTS)]
-    for m in convs:
-        m.forward = _conv(kind).__get__(m)
+             for m in model.modules() if isinstance(m, rounded)]
+    for m in layers:
+        m.forward = (_conv if isinstance(m, nn.Conv2d) else _linear)(kind).__get__(m)
     try:
         yield model
     finally:
-        for m in convs:
+        for m in layers:
             del m.forward
         for h in hooks:
             h.remove()

@@ -1,5 +1,6 @@
 """Plain float32 PyTorch models: the benchmark's reference of the two
-configured families.
+families that its first configurations run; ``build`` finds any other
+family in a file of its own (``reference/families/<family>.py``).
 
 Written from the published descriptions and the layouts the configurations
 name, with the same module nesting and so the same ``state_dict`` keys as
@@ -22,11 +23,14 @@ kernel, no capture, no compute-dtype rounding: ``nn.Conv2d``,
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from benchmark import harness
 
 BN_EPS = 1e-5
 
@@ -166,11 +170,19 @@ class MobileNetV2DeepLab(nn.Module):
         return up2(up2(self.classifier(y)))
 
 
-def build(arch: dict) -> nn.Module:
-    """The reference model of a configuration's ``reference`` block."""
-    if arch["family"] == "mobilenetv2_unet":
+def build(arch: dict, root: str = harness.CHECKOUT) -> nn.Module:
+    """The reference model of a configuration's ``reference`` block: one of
+    the two families above, or what ``build(arch)`` of
+    ``reference/families/<family>.py`` returns, that file looked up under
+    ``root``'s benchmark folder and then in this package."""
+    family = arch["family"]
+    if family == "mobilenetv2_unet":
         return MobileNetV2UNet(arch["num_classes"])
-    if arch["family"] == "mobilenetv2_deeplab":
+    if family == "mobilenetv2_deeplab":
         return MobileNetV2DeepLab(arch["num_classes"], arch["aspp_channels"],
                                   arch["low_level_channels"], arch["aspp_rates"])
-    raise KeyError(f"no reference for family {arch['family']!r}")
+    try:
+        path = harness.find(root, os.path.join("reference", "families"), family, ".py")
+    except FileNotFoundError as e:
+        raise KeyError(f"no reference for family {family!r}: {e}") from None
+    return harness.load_module(path).build(arch)
